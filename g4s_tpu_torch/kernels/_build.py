@@ -1,0 +1,110 @@
+"""Build g4s_tpu_torch/csrc/*.cu into one shared library and load it.
+
+nvcc compiles every source in one call, for Hopper only, into
+`g4s_tpu_torch/_build/libg4s_kernels_<hash>.so`, where the hash covers the
+sources and the flags: a changed source builds anew, an unchanged one is
+loaded as built. The sources expose a plain C interface (no PyTorch
+headers), so the build takes seconds. Every C entry point returns the
+launch's `cudaGetLastError()`; the wrappers raise when it is not 0.
+
+Nothing here falls back: a missing nvcc or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+# -Xptxas -v only reports each kernel's registers, shared memory and spills
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_INT = ctypes.c_int
+# every pointer and the stream are c_void_p: ctypes would otherwise pass a
+# Python int as a 32-bit int and cut the address
+SIGNATURES = {
+    "g4s_permute_gather_f32": (_P, _P, _P, _I64, _P),
+    "g4s_permute_gather_f64": (_P, _P, _P, _I64, _P),
+    "g4s_wsell_spmv_f32": (_P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _INT,
+                           _P),
+}
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def nvcc() -> str:
+    """Path of nvcc: on PATH, else under CUDA_HOME or /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "g4s_tpu_torch kernels are built from csrc/ at first use and need "
+        "the CUDA toolkit")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libg4s_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, str]:
+    """Compile the sources if their library is missing. Returns the
+    library's path and nvcc's output (empty when nothing was built)."""
+    out = library_path()
+    if out.exists():
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *map(str, sources())]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}{proc.stderr}")
+        # atomic rename: a concurrent build never loads a partial file
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out, proc.stdout + proc.stderr
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """The kernel library, built at first use, with its C signatures set."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a C entry point."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")

@@ -1,0 +1,106 @@
+"""Static permutations: out[i] = z[sigma[i]] (counterpart of
+g4s_tpu/ops/route.py).
+
+The reference applies a static permutation on the TPU as a Clos network of
+Benes butterflies (two Pallas kernels, `_lane_benes_kernel` and
+`_mid_kernel`, around two XLA transposes) because TPU gathers are serial,
+and routes the network on the host. On Hopper the same function is one
+gather kernel over an int32 sigma (csrc/permute.cu), so a plan is the
+permutation vector itself and no host routing is needed.
+
+`PermutePlan` keeps the reference's padding: m is m0 rounded up to a
+multiple of TILE with identity on the tail, and plans above MAX_M raise
+NotImplementedError, so the dispatcher makes the reference's choices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from g4s_tpu_torch.kernels import _build
+from g4s_tpu_torch.sparse.containers import as_tensor
+
+C = 128               # the reference's lane width
+TILE = C * C          # plan granularity: m is padded to a multiple of 128^2
+MAX_M = C * C * 2048  # the reference's single-plan limit
+
+# launches of the permute_gather kernel (CUDA tensors only)
+LAUNCHES = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class PermutePlan:
+    """Executable plan for out[i] = in[sigma[i]] over m padded elements."""
+
+    sigma: torch.Tensor   # (m,) int32, a bijection on [0, m)
+    m: int
+
+
+def build_permute_plan(sigma, *, device) -> PermutePlan:
+    """Plan for out[i] = in[sigma[i]]; sigma (m0,) is a bijection on
+    [0, m0). The plan pads to m = roundup(m0, TILE) with identity on the
+    tail; callers pad the input with anything."""
+    sigma = np.asarray(sigma, np.int64)
+    m0 = sigma.size
+    m = -(-m0 // TILE) * TILE
+    if m > MAX_M:
+        raise NotImplementedError(
+            f"m={m} exceeds the single-plan limit {MAX_M}; chunk the "
+            "stream or extend the middle to depth 2")
+    if m0 and (sigma.min() < 0 or sigma.max() >= m0):
+        raise ValueError("sigma must take values in [0, m0)")
+    if m0 < m:
+        sigma = np.concatenate([sigma, np.arange(m0, m, dtype=np.int64)])
+    return PermutePlan(as_tensor(sigma, np.int32).to(device), m)
+
+
+def _apply_permute_plain(z: torch.Tensor, sigma: torch.Tensor):
+    """Plain PyTorch version of the permute_gather kernel."""
+    return z[sigma.long()]
+
+
+def permute_gather(z: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """out[i] = z[sigma[i]], len(out) == len(sigma).
+
+    A CUDA tensor goes through the permute_gather kernel (f32 or f64 z,
+    int32 sigma with values in [0, len(z)), both contiguous and 1-D); a CPU
+    tensor through its plain PyTorch version. Anything else raises."""
+    global LAUNCHES
+    if z.device.type == "cpu":
+        return _apply_permute_plain(z, sigma)
+    if not z.is_cuda:
+        raise ValueError(f"permute_gather: unsupported device {z.device}")
+    if z.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"permute_gather: z must be f32 or f64, not "
+                        f"{z.dtype}")
+    if sigma.dtype != torch.int32 or sigma.device != z.device:
+        raise TypeError("permute_gather: sigma must be int32 on z's device")
+    if z.dim() != 1 or sigma.dim() != 1 or not z.is_contiguous() \
+            or not sigma.is_contiguous():
+        raise ValueError("permute_gather: z and sigma must be contiguous "
+                         "1-D tensors")
+    m = sigma.shape[0]
+    out = torch.empty((m,), dtype=z.dtype, device=z.device)
+    if m == 0:
+        return out
+    lib = _build.load()
+    name = ("g4s_permute_gather_f32" if z.dtype == torch.float32
+            else "g4s_permute_gather_f64")
+    with torch.cuda.device(z.device):
+        rc = getattr(lib, name)(z.data_ptr(), sigma.data_ptr(),
+                                out.data_ptr(), m,
+                                torch.cuda.current_stream().cuda_stream)
+    LAUNCHES += 1
+    _build.check(rc, name)
+    return out
+
+
+def apply_permute(plan: PermutePlan, z: torch.Tensor) -> torch.Tensor:
+    """out[i] = z[sigma[i]] for flat z of length plan.m."""
+    if z.shape != (plan.m,):
+        raise ValueError(f"apply_permute: z has shape {tuple(z.shape)}, "
+                         f"plan expects ({plan.m},)")
+    return permute_gather(z, plan.sigma)

@@ -1,0 +1,85 @@
+"""Kernel tests that need a CUDA card: each hand-written kernel against its
+plain PyTorch version on the card, the wrappers' input checks, and the CUDA
+dispatch rules. They skip where there is no card.
+
+On the card, with no JAX installed, run them without the suite's conftest:
+    python -m pytest --noconftest -p no:cacheprovider -m cuda \
+        tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+from g4s_tpu_torch.engine import build_graph, mxv
+from g4s_tpu_torch.ops import route, wsell_spmv
+from g4s_tpu_torch.sparse import CSR
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_permute_gather_bit_exact(cuda, dtype):
+    rng = np.random.default_rng(0)
+    m = 100003
+    z = torch.from_numpy(rng.standard_normal(m)).to(cuda, dtype)
+    sigma = torch.from_numpy(rng.permutation(m).astype(np.int32)).to(cuda)
+    before = route.LAUNCHES
+    got = route.permute_gather(z, sigma)
+    assert route.LAUNCHES == before + 1
+    assert torch.equal(got, route._apply_permute_plain(z, sigma))
+
+
+def test_permute_gather_rejects_bad_inputs(cuda):
+    z = torch.zeros(10, device=cuda)
+    with pytest.raises(TypeError):
+        route.permute_gather(z, torch.arange(10, device=cuda))   # int64
+    with pytest.raises(TypeError):
+        route.permute_gather(z.int(), torch.arange(10, device=cuda).int())
+    with pytest.raises(ValueError):
+        route.permute_gather(torch.zeros(20, device=cuda)[::2],
+                             torch.arange(10, device=cuda).int())
+
+
+@pytest.mark.parametrize("offs", [[0, 1], [-1, 0, 1, 300, -300],
+                                  list(range(-6, 7)) + [300, -300, 1000]])
+def test_wsell_kernel_matches_plain(cuda, offs):
+    rng = np.random.default_rng(1)
+    n = 4096
+    a = sp.diags([rng.standard_normal(n - abs(o)) for o in offs], offs,
+                 shape=(n, n), format="csr").astype(np.float32)
+    packed = wsell_spmv.pack_wsell(CSR.from_scipy(a), device=cuda,
+                                   packs_per_tile=2)
+    x_pad = torch.zeros(wsell_spmv._chain_pad(packed), device=cuda)
+    x_pad[:n] = torch.from_numpy(
+        rng.standard_normal(n).astype(np.float32)).to(cuda)
+    got = wsell_spmv.spmv_wsell_chain(packed, x_pad)
+    want = wsell_spmv._spmv_wsell_plain(packed, x_pad)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert bool((got[n:] == 0).all())
+    with pytest.raises(TypeError):
+        wsell_spmv.spmv_wsell_chain(packed, x_pad.double())
+
+
+def test_stencil_dispatches_to_wsell(cuda):
+    nx = 24
+    rng = np.random.default_rng(0)
+    t_ = sp.diags([1.0, 1.0, 1.0], [-1, 0, 1], (nx, nx))
+    e_ = sp.eye(nx)
+    a = (sp.kron(sp.kron(e_, e_), t_) + sp.kron(sp.kron(e_, t_), e_)
+         + sp.kron(t_, sp.kron(e_, e_))).tocsr().astype(np.float32)
+    pp = rng.permutation(nx ** 3)
+    a = a[pp][:, pp].tocsr()
+    g = build_graph(CSR.from_scipy(a), device=cuda)
+    assert g.variant == "wsell" and g.perm is not None
+    x = rng.standard_normal(a.shape[0]).astype(np.float32)
+    y = mxv(g, torch.from_numpy(x).to(cuda)).cpu().numpy()
+    np.testing.assert_allclose(y, a.astype(np.float64) @ x, atol=1e-4)

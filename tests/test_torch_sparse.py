@@ -1,0 +1,209 @@
+"""Parity of g4s_tpu_torch.sparse with g4s_tpu.sparse: the same .mtx file and
+the same CSR give identical arrays in both packages (host numpy algorithms
+on both sides, so every comparison is exact)."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import scipy.io
+import scipy.sparse as sp
+import torch
+
+import g4s_tpu.sparse as ref
+import g4s_tpu_torch.sparse as port
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _np(a):
+    return a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _same(a, b):
+    """Exact equality of values and dtype."""
+    a, b = _np(a), _np(b)
+    assert a.dtype == b.dtype, (a.dtype, b.dtype)
+    assert np.array_equal(a, b)
+
+
+def _same_csr(p, r):
+    assert tuple(p.shape) == tuple(r.shape)
+    for f in ("indptr", "indices", "data"):
+        _same(getattr(p, f), getattr(r, f))
+
+
+def _random(seed=0, n_rows=60, n_cols=50, density=0.08, dups=True):
+    rng = np.random.default_rng(seed)
+    nnz = int(n_rows * n_cols * density)
+    r = rng.integers(0, n_rows, nnz)
+    c = rng.integers(0, n_cols, nnz)
+    if dups:
+        r, c = np.r_[r, r[:5]], np.r_[c, c[:5]]
+    v = rng.standard_normal(r.size)
+    return r, c, v, (n_rows, n_cols)
+
+
+def test_package_imports_no_jax():
+    code = ("import sys, g4s_tpu_torch, g4s_tpu_torch.engine, "
+            "g4s_tpu_torch.ops, g4s_tpu_torch.kernels._build; "
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'g4s_tpu.')) or m == 'g4s_tpu'); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("kind", ["general", "symmetric", "skew-symmetric",
+                                  "pattern"])
+def test_read_mtx_parity(tmp_path, kind):
+    a = sp.random(40, 40, density=0.1, random_state=2, format="coo")
+    if kind == "symmetric":
+        a = (a + a.T).tocoo()
+    elif kind == "skew-symmetric":
+        a = (a - a.T).tocoo()
+    path = tmp_path / "a.mtx"
+    field = "pattern" if kind == "pattern" else "real"
+    scipy.io.mmwrite(str(path), a, field=field,
+                     symmetry="general" if kind == "pattern" else kind)
+    _same_csr(port.read_mtx_csr(path), ref.read_mtx_csr(path))
+    pc, rc = port.read_mtx(path), ref.read_mtx(path)
+    for f in ("row", "col", "val"):
+        _same(getattr(pc, f), getattr(rc, f))
+    dense = port.read_mtx_csr(path).to_scipy().toarray()
+    want = scipy.io.mmread(str(path)).toarray()
+    np.testing.assert_array_equal(dense, want)
+
+
+def test_read_mtx_rejects_hermitian(tmp_path):
+    path = tmp_path / "h.mtx"
+    path.write_text("%%MatrixMarket matrix coordinate complex hermitian\n"
+                    "2 2 1\n1 1 1.0 0.0\n")
+    for mod in (port, ref):
+        with pytest.raises(ValueError):
+            mod.read_mtx(path)
+
+
+def test_write_mtx_read_by_reference(tmp_path):
+    r, c, v, shape = _random(3)
+    path = tmp_path / "w.mtx"
+    port.write_mtx(path, port.COO(torch.from_numpy(r), torch.from_numpy(c),
+                                  torch.from_numpy(v), shape))
+    back = ref.read_mtx_csr(path)
+    _same_csr(port.read_mtx_csr(path), back)
+    want = sp.coo_matrix((v, (r, c)), shape=shape).tocsr()
+    np.testing.assert_array_equal(back.to_scipy().toarray(), want.toarray())
+
+
+def test_read_gtgraph_parity(tmp_path):
+    path = tmp_path / "g.gr"
+    path.write_text("c toy\np sp 5 6\na 1 2 1.5\na 2 3 2.0\na 1 2 0.5\n"
+                    "a 5 1 3.0\na 3 4 1.0\na 4 5 4.0\n")
+    _same_csr(port.read_gtgraph(path), ref.read_gtgraph(path))
+
+
+@pytest.mark.parametrize("conv", ["coo_to_csr", "coo_to_csr_sum",
+                                  "csr_to_csc", "csc_to_csr",
+                                  "merge_duplicates", "crop", "dense"])
+def test_compressed_conversions(conv):
+    r, c, v, shape = _random(4)
+    rc = ref.COO(r.astype(np.int32), c.astype(np.int32), v, shape)
+    pc = port.COO(torch.from_numpy(r.astype(np.int32)),
+                  torch.from_numpy(c.astype(np.int32)), torch.from_numpy(v),
+                  shape)
+    if conv == "coo_to_csr":
+        _same_csr(port.coo_to_csr(pc), ref.coo_to_csr(rc))
+        return
+    if conv == "coo_to_csr_sum":
+        _same_csr(port.coo_to_csr(pc, sum_duplicates=True),
+                  ref.coo_to_csr(rc, sum_duplicates=True))
+        return
+    p_csr, r_csr = port.coo_to_csr(pc), ref.coo_to_csr(rc)
+    if conv == "csr_to_csc":
+        _same_csr(port.csr_to_csc(p_csr), ref.csr_to_csc(r_csr))
+    elif conv == "csc_to_csr":
+        _same_csr(port.csc_to_csr(port.csr_to_csc(p_csr)),
+                  ref.csc_to_csr(ref.csr_to_csc(r_csr)))
+    elif conv == "merge_duplicates":
+        _same_csr(port.merge_duplicates(p_csr), ref.merge_duplicates(r_csr))
+        assert port.csr_allclose(p_csr, port.merge_duplicates(p_csr))
+    elif conv == "crop":
+        _same_csr(port.crop(p_csr, 45, 30), ref.crop(r_csr, 45, 30))
+    else:
+        d = port.csr_to_dense(p_csr)
+        _same(d, ref.csr_to_dense(r_csr))
+        _same_csr(port.dense_to_csr(d), ref.dense_to_csr(d))
+
+
+@pytest.mark.parametrize("layout", ["ell", "ell_width", "sell", "sell_height",
+                                    "dia"])
+def test_padded_layouts(layout):
+    if layout == "dia":
+        m = sp.diags([np.arange(1.0, 81.0)] * 4, [0, 2, -5, 7],
+                     shape=(80, 80), format="csr")
+    else:
+        r, c, v, shape = _random(5, 70, 70, 0.06, dups=False)
+        m = sp.coo_matrix((v, (r, c)), shape=shape).tocsr()
+    pa, ra = port.CSR.from_scipy(m), ref.CSR.from_scipy(m)
+    if layout.startswith("ell"):
+        kw = dict(width=16, pad_to=8) if layout == "ell_width" else \
+            dict(pad_to=8)
+        p, r = port.csr_to_ell(pa, **kw), ref.csr_to_ell(ra, **kw)
+        _same(p.cols, r.cols)
+        _same(p.vals, r.vals)
+        assert p.shape == r.shape and p.width == r.width
+    elif layout.startswith("sell"):
+        kw = dict(slice_height=16) if layout == "sell_height" else {}
+        p, r = port.csr_to_sell(pa, **kw), ref.csr_to_sell(ra, **kw)
+        assert p.slice_rows == r.slice_rows
+        _same(p.perm, r.perm)
+        _same(p.iperm, r.iperm)
+        for ps_, rs_ in zip(p.slices, r.slices):
+            _same(ps_.cols, rs_.cols)
+            _same(ps_.vals, rs_.vals)
+        np.testing.assert_array_equal(p.to_scipy().toarray(), m.toarray())
+    else:
+        p, r = port.csr_to_dia(pa), ref.csr_to_dia(ra)
+        assert p.offsets == r.offsets
+        _same(p.vals, r.vals)
+        np.testing.assert_array_equal(p.to_scipy().toarray(), m.toarray())
+        with pytest.raises(ValueError):
+            port.csr_to_dia(pa, max_diags=3)
+
+
+@pytest.mark.parametrize("cls", ["COO", "CSR", "CSC", "ELL", "SELL", "DIA"])
+def test_container_scipy_roundtrip_and_to(cls):
+    m = sp.diags([np.arange(1.0, 31.0)] * 3, [0, 1, -4], shape=(30, 30),
+                 format="csr")
+    c = getattr(port, cls).from_scipy(m)
+    back = c.to_scipy()
+    np.testing.assert_array_equal(back.toarray(), m.toarray())
+    moved = c.to("cpu")
+    assert type(moved) is type(c)
+    np.testing.assert_array_equal(moved.to_scipy().toarray(), m.toarray())
+
+
+def test_compare_parity():
+    r, c, v, shape = _random(6)
+    pa = port.coo_to_csr(port.COO(r, c, v, shape))
+    pb = port.coo_to_csr(port.COO(r, c, v * (1 + 1e-10), shape))
+    ra = ref.coo_to_csr(ref.COO(r, c, v, shape))
+    rb = ref.coo_to_csr(ref.COO(r, c, v * (1 + 1e-10), shape))
+    assert port.csr_allclose(pa, pb) == ref.csr_allclose(ra, rb) is True
+    pc = port.coo_to_csr(port.COO(r, c, v * 1.01, shape))
+    rc = ref.coo_to_csr(ref.COO(r, c, v * 1.01, shape))
+    assert port.csr_allclose(pa, pc) == ref.csr_allclose(ra, rc) is False
+    x, y = np.array([1.0, 0.0, 1e-9, 5.0]), np.array([1.0, 1e-9, 0.0, 6.0])
+    np.testing.assert_array_equal(port.error_tolerant_equal(x, y),
+                                  ref.error_tolerant_equal(x, y))
