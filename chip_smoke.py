@@ -1,39 +1,59 @@
 #!/usr/bin/env python3
-"""Drive the port's graph-engine SpMV path once on one CUDA card.
+"""Drive the port's graph-engine paths once on one CUDA card.
 
 Run from the root of a checkout: `python3 chip_smoke.py`. It
 
   0. requires a CUDA card and prints torch, CUDA and nvcc versions and the
      card's name and power limit;
-  1. builds the hand-written kernels from g4s_tpu_torch/csrc/;
+  1. builds the hand-written kernels from g4s_tpu_torch/csrc/ (one nvcc
+     per source, all started together);
   2. holds each kernel against its plain PyTorch version on the card:
      permute_gather bit-exact (m = 2^20, f32 and f64), wsell_spmv within a
      relative 1e-5 on the multi-window, rectangular, W=2 and W=16 packs;
-  3. drives the main path, build_graph + mxv, on the randomly renumbered
-     3D 7-point stencil at nx = 101 (n = 1,030,301): it must dispatch to
-     "wsell" with an RCM permutation, launch both kernels, and match scipy
-     in f64 to a relative 1e-5 (f32 sums of 7 terms in another order);
-     both kernels are compared and timed at the shapes this path gives
-     them, beside their plain versions (device time per call, see
-     _cuda_ms), and mxv's host wall time per call is timed beside it;
+  3. drives the SpMV main path, build_graph + mxv, on the randomly
+     renumbered 3D 7-point stencil at nx = 101 (n = 1,030,301): it must
+     dispatch to "wsell" with an RCM permutation, launch both kernels, and
+     match scipy in f64 to a relative 1e-5 (f32 sums of 7 terms in another
+     order); both kernels are compared and timed at the shapes this path
+     gives them, beside their plain versions and the library call
+     (cuSPARSE CSR SpMV, z[sigma]), and mxv's host wall time per call is
+     timed beside it;
   4. the shuffled 16-diagonal band at n = 2^20 -> "dia" with a permutation;
-  5. a uniform random 2^17 x 8-per-row matrix -> "stream", 3 permutes.
+  5. a uniform random 2^17 x 8-per-row matrix -> "stream", 3 permutes;
+  6. the BWELL path, spmv_bwell: the bwell_spmv kernel against its plain
+     version on four small packs (modes pack and row, W = 16 and 2), then at
+     n = 2^20 on the unshuffled band of phase 4 (mode pack, W = 16) and on
+     a clustered matrix that mode pack rejects (mode row), each against
+     scipy f64 to a relative 1e-5, timed beside its plain version and
+     cuSPARSE;
+  7. the SpGEMM path, mxm, at bench.py's sizes (Erdos-Renyi n = 2^15 and
+     2^17 of average degree 16, the RMAT-like 2^15 x 2^19): it must take
+     the ESC engine, give C's indptr/indices equal to scipy's and values
+     within a relative 1e-5 of scipy f64; plan and numeric times beside
+     the wall time of torch.sparse.mm (cuSPARSE SpGEMM, which waits on the
+     device itself; a yardstick only); then reg_mm on
+     two small pairs, every strategy PASS;
+  8. the mv suite: the four dense BLAS2 products at dim 4096.
 
-Each phase prints one line; any failure raises. The line before the last
-is a JSON object describing each kernel; the last is the result line.
-Fails (exit code 1, no result line) without CUDA or outside the repo.
+Device times are medians per call between back-to-back calls queued
+behind a device sleep (g4s_tpu_torch.obs.timings.device_ms). Each phase
+prints one line; any failure raises. The line before the last is the
+card's name and power limit, the one before it a JSON object describing
+each kernel; the last is the result line. Fails (exit code 1, no result
+line) without CUDA or outside the repo.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
 
 REL_TOL = 1e-5
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory, published
+F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 
 
 def _say(phase: str, **kw) -> None:
@@ -44,37 +64,6 @@ def _say(phase: str, **kw) -> None:
 def _run(cmd: list[str]) -> str:
     return subprocess.run(cmd, capture_output=True, text=True, check=True,
                           timeout=60).stdout.strip()
-
-
-def _cuda_ms(fn, reps: int = 30, warmup: int = 3) -> float:
-    """Median device time of one fn() call, by CUDA events between `reps`
-    back-to-back calls.
-
-    Enqueueing one call can take the host longer than the device takes to
-    run it, and an event pair around a call on an idle device then times
-    the host. So the device first sleeps while the host queues every call
-    and event; if the device reached the first event before the host had
-    queued them all, the sleep is lengthened and the batch repeated."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    cycles = 1 << 26
-    for _ in range(4):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
-        torch.cuda._sleep(cycles)
-        ev[0].record()
-        for e in ev[1:]:
-            fn()
-            e.record()
-        drained = ev[0].query()
-        torch.cuda.synchronize()
-        if not drained:
-            return statistics.median(
-                a.elapsed_time(b) for a, b in zip(ev, ev[1:]))
-        cycles *= 4
-    raise RuntimeError("the host could not queue the timed calls ahead of "
-                       "the device")
 
 
 def _host_us(fn, reps: int = 100) -> float:
@@ -91,6 +80,29 @@ def _host_us(fn, reps: int = 100) -> float:
     return (time.perf_counter() - t0) / reps * 1e6
 
 
+def _wall_ms(fn, reps: int = 5) -> float:
+    """Host wall time per call, each call synchronized: for a library call
+    that waits on the device itself (cuSPARSE SpGEMM sizes its output on
+    the host), so its calls cannot be queued behind a device sleep."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _bound(nbytes: float, ops: float):
+    """(least ms, what bounds it): each input byte read once and each
+    output byte written once at the published memory rate, against the
+    operations at the float32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
 def _rel_err(y, ref) -> float:
     import numpy as np
     y = np.asarray(y, np.float64)
@@ -105,10 +117,21 @@ def _check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def _csr_tensor(a, dev):
+    """A scipy CSR matrix as a torch sparse CSR tensor on `dev`, for the
+    library-call yardsticks (cuSPARSE)."""
+    import numpy as np
+    import torch
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(a.indptr.astype(np.int64)),
+        torch.from_numpy(a.indices.astype(np.int64)),
+        torch.from_numpy(a.data), size=a.shape).to(dev)
+
+
 def _wsell_cases():
-    """The four pack shapes the kernel is compared on: the multi-window and
-    rectangular/empty-row matrices of tests/test_ops.py, and packs with
-    W = 2 and W = 16."""
+    """The four pack shapes the WSELL kernel is compared on: the
+    multi-window and rectangular/empty-row matrices of tests/test_ops.py,
+    and packs with W = 2 and W = 16."""
     import numpy as np
     import scipy.sparse as sp
     rng = np.random.default_rng(0)
@@ -144,6 +167,52 @@ def _wsell_cases():
     yield "w16", w16
 
 
+def _band(n: int):
+    """The 16-diagonal band of tests/test_ops.py and bench.py (ones)."""
+    import numpy as np
+    import scipy.sparse as sp
+    offs = np.r_[0, np.arange(1, 8), -np.arange(1, 9)]
+    return sp.diags([np.ones(n)] * len(offs), offs, shape=(n, n),
+                    format="csr").astype(np.float32)
+
+
+def _clustered(n: int, seed: int, W: int = 16):
+    """Columns cluster per 8-row gather row but not per 64-row pack
+    (tests/test_ops.py:410): BWELL mode pack rejects it, mode row takes
+    it."""
+    import numpy as np
+    import scipy.sparse as sp
+    rng = np.random.default_rng(seed)
+    gr = n // 8
+    bases = rng.integers(0, (n - 64) // 64, size=gr) * 64
+    cols = (bases[:, None, None]
+            + rng.integers(0, 64, size=(gr, 8, W))).reshape(-1)
+    rows = np.repeat(np.arange(n), W)
+    vals = rng.standard_normal(n * W).astype(np.float32)
+    m = sp.csr_matrix((vals, (rows, cols)), shape=(n, n))
+    m.sum_duplicates()
+    return m
+
+
+def _bwell_cases():
+    """(name, matrix, mode, packs per tile) of the small BWELL packs: the
+    band and the clustered matrix of tests/test_ops.py, W = 2, and W = 16
+    in mode row."""
+    import numpy as np
+    import scipy.sparse as sp
+    rng = np.random.default_rng(5)
+    n = 4096
+    yield "band_pack", _band(2048), "pack", 4
+    yield "clustered_row", _clustered(2048, seed=0), "auto", 64
+    w2 = sp.diags([rng.normal(size=n), rng.normal(size=n - 1)], [0, 1],
+                  shape=(n, n), format="csr").astype(np.float32)
+    yield "w2_auto", w2, "auto", 2      # 512-row packs: mode row
+    offs = list(range(-7, 9))
+    w16 = sp.diags([rng.normal(size=n - abs(o)) for o in offs], offs,
+                   shape=(n, n), format="csr").astype(np.float32)
+    yield "w16_row", w16, "row", 2
+
+
 def _stencil(nx: int, seed: int):
     """bench.py's headline matrix: a 3D 7-point stencil, renumbered by a
     random permutation drawn from `seed`."""
@@ -158,6 +227,39 @@ def _stencil(nx: int, seed: int):
     return a[pp][:, pp].tocsr()
 
 
+def _rmat_like(n: int, nnz: int, seed: int = 7, cap: int = 256):
+    """bench.py's power-law square matrix: Zipf row and column degrees
+    capped at `cap` (configuration model)."""
+    import numpy as np
+    import scipy.sparse as sp
+    r = np.random.RandomState(seed)
+    deg = np.minimum(r.zipf(1.6, size=n), cap).astype(np.int64)
+    deg = deg[r.permutation(n)]
+    rows = np.repeat(np.arange(n, dtype=np.int64), deg)[:nnz]
+    deg2 = np.minimum(r.zipf(1.6, size=n), cap).astype(np.int64)
+    cols = np.repeat(np.arange(n, dtype=np.int64),
+                     deg2[r.permutation(n)])[:nnz]
+    r.shuffle(cols)
+    m = min(rows.size, cols.size)
+    a = sp.coo_matrix((r.randn(m).astype(np.float32),
+                       (rows[:m], cols[:m])), shape=(n, n)).tocsr()
+    a.sum_duplicates()
+    return a
+
+
+def _erdos_renyi(n: int, avg_deg: int, seed: int):
+    """Uniform random n x n with n * avg_deg entries drawn as COO pairs
+    (duplicates summed), f32 values in [0, 1)."""
+    import numpy as np
+    import scipy.sparse as sp
+    r = np.random.RandomState(seed)
+    nnz = n * avg_deg
+    return sp.coo_matrix(
+        (r.rand(nnz).astype(np.float32),
+         (r.randint(0, n, nnz), r.randint(0, n, nnz))),
+        shape=(n, n)).tocsr()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -165,15 +267,27 @@ def main() -> int:
               "False); this script runs only on a GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import warnings
+
     import numpy as np
     import scipy.sparse as sp
 
-    from g4s_tpu_torch.engine import build_graph, mxv
+    # torch's notes that its sparse CSR support is in beta (the library
+    # yardsticks below use it)
+    warnings.filterwarnings("ignore", message="Sparse")
+
+    from g4s_tpu_torch.drivers import mv_bench, reg_mm
+    from g4s_tpu_torch.engine import build_graph, dispatch, mxv
     from g4s_tpu_torch.kernels import _build
-    from g4s_tpu_torch.ops import route, wsell_spmv
-    from g4s_tpu_torch.sparse import CSR
+    from g4s_tpu_torch.obs.timings import device_ms
+    from g4s_tpu_torch.ops import bwell_spmv, route, spgemm_esc, wsell_spmv
+    from g4s_tpu_torch.sparse import CSR, dense_to_csr
 
     dev = torch.device("cuda")
+
+    def ms_of(fn, reps: int = 20) -> float:
+        return device_ms(fn, device=dev, reps=reps)
+
     smi = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"]).splitlines()[0]
     nvcc_ver = _run([_build.nvcc(), "--version"]).splitlines()[-1]
@@ -193,7 +307,7 @@ def main() -> int:
 
     # ---- 2: each kernel against its plain version, small cases ----------
     rng = np.random.default_rng(0)
-    err = {"permute_gather": 0.0, "wsell_spmv": 0.0}
+    err = {"permute_gather": 0.0, "wsell_spmv": 0.0, "bwell_spmv": 0.0}
     m = 1 << 20
     sigma = torch.from_numpy(rng.permutation(m).astype(np.int32)).to(dev)
     for dt in (torch.float32, torch.float64):
@@ -248,16 +362,38 @@ def main() -> int:
     _check(rel <= REL_TOL, f"wsell_spmv at the stencil pack: rel {rel}")
     err["wsell_spmv"] = max(err["wsell_spmv"], float((w_k - w_p).abs().max()))
 
+    # library calls computing the same functions: z[sigma] for the
+    # permute, cuSPARSE SpMV of the pack's (renumbered) matrix for WSELL
+    perm_np = g.perm.cpu().numpy()
+    A_p = A[perm_np][:, perm_np].tocsr()
+    A_p_t = _csr_tensor(A_p, dev)
+    x_n = x_pad[:n].contiguous()        # the hoisted kernel's input
+    rel_lib = _rel_err(torch.mv(A_p_t, x_n).cpu(), w_k[:n].cpu())
+    _check(rel_lib <= REL_TOL, f"cuSPARSE vs wsell_spmv: rel {rel_lib}")
     ms = {
-        "permute_gather": _cuda_ms(lambda: route.permute_gather(x, g.perm)),
-        "wsell_spmv": _cuda_ms(
+        "permute_gather": ms_of(lambda: route.permute_gather(x, g.perm)),
+        "wsell_spmv": ms_of(
             lambda: wsell_spmv.spmv_wsell_chain(g.wsell, x_pad)),
     }
     plain_ms = {
-        "permute_gather": _cuda_ms(
+        "permute_gather": ms_of(
             lambda: route._apply_permute_plain(x, g.perm)),
-        "wsell_spmv": _cuda_ms(
+        "wsell_spmv": ms_of(
             lambda: wsell_spmv._spmv_wsell_plain(g.wsell, x_pad)),
+    }
+    library_ms = {
+        "permute_gather": ms_of(lambda: x[g.perm]),
+        "wsell_spmv": ms_of(lambda: torch.mv(A_p_t, x_n)),
+    }
+    ws = g.wsell
+    bound = {
+        # z (f32) and sigma (int32) read, out (f32) written
+        "permute_gather": _bound(12.0 * n, 0),
+        # codes (int16), values, window starts, x read; y written; one FMA
+        # per stored slot
+        "wsell_spmv": _bound(ws.lanes.numel() * 2 + ws.vals.numel() * 4
+                             + ws.starts.numel() * 4 + 2 * x_pad.numel() * 4,
+                             2.0 * ws.vals.numel()),
     }
 
     def mxv_plain():
@@ -266,8 +402,8 @@ def main() -> int:
         y_p = wsell_spmv._spmv_wsell_plain(g.wsell, xp)[:n]
         return route._apply_permute_plain(y_p, g.iperm)
 
-    mxv_ms = _cuda_ms(lambda: mxv(g, x))
-    mxv_plain_ms = _cuda_ms(mxv_plain)
+    mxv_ms = ms_of(lambda: mxv(g, x))
+    mxv_plain_ms = ms_of(mxv_plain)
     mxv_host_us = _host_us(lambda: mxv(g, x))
     stencil_bytes = A.nnz * 8 + n * 8          # bench.py's byte count
     _say("3-time", mxv_ms=f"{mxv_ms:.4f}", mxv_plain_ms=f"{mxv_plain_ms:.4f}",
@@ -275,10 +411,15 @@ def main() -> int:
          device_idle_share=f"{max(0.0, 1 - mxv_ms * 1e3 / mxv_host_us):.3f}",
          hoisted_wsell_ms=f"{ms['wsell_spmv']:.4f}",
          wsell_plain_ms=f"{plain_ms['wsell_spmv']:.4f}",
+         wsell_cusparse_ms=f"{library_ms['wsell_spmv']:.4f}",
+         wsell_bound_ms=f"{bound['wsell_spmv'][0]:.4f}",
          permute_ms=f"{ms['permute_gather']:.4f}",
          permute_plain_ms=f"{plain_ms['permute_gather']:.4f}",
+         permute_library_ms=f"{library_ms['permute_gather']:.4f}",
+         permute_bound_ms=f"{bound['permute_gather'][0]:.4f}",
          gbs_mxv=f"{stencil_bytes / mxv_ms / 1e6:.1f}",
          gbs_hoisted=f"{stencil_bytes / ms['wsell_spmv'] / 1e6:.1f}")
+    del A_p, A_p_t
 
     route.LAUNCHES = 0
     wsell_spmv.LAUNCHES = 0
@@ -293,12 +434,11 @@ def main() -> int:
     _check(rel <= REL_TOL, f"stencil mxv vs scipy f64: rel {rel}")
     _say("3-mxv", launches=json.dumps(launches).replace(" ", ""),
          rel_err_vs_scipy_f64=f"{rel:.3g}")
+    del g, A
 
     # ---- 4: RCM-DIA: the shuffled 16-diagonal band ----------------------
     nb = 1 << 20
-    offs = np.r_[0, np.arange(1, 8), -np.arange(1, 9)]
-    band = sp.diags([np.ones(nb)] * len(offs), offs, shape=(nb, nb),
-                    format="csr").astype(np.float32)
+    band = _band(nb)
     p_ = rng.permutation(nb)
     shuf = band[p_][:, p_].tocsr()
     g4 = build_graph(CSR.from_scipy(shuf), device=dev)
@@ -313,6 +453,7 @@ def main() -> int:
     _check(rel <= REL_TOL, f"dia mxv vs scipy f64: rel {rel}")
     _say("4-dia", n=nb, variant=g4.variant, ndiag=g4.dia.ndiag,
          permute_launches=route.LAUNCHES, rel_err_vs_scipy_f64=f"{rel:.3g}")
+    del g4, shuf
 
     # ---- 5: the streaming schedule: uniform random 2^17 x 8 -------------
     nr = 1 << 17
@@ -334,29 +475,198 @@ def main() -> int:
     _check(route.LAUNCHES == 3, f"stream permute launches {route.LAUNCHES}")
     rel = _rel_err(yr.cpu(), rand.astype(np.float64) @ xr.astype(np.float64))
     _check(rel <= REL_TOL, f"stream mxv vs scipy f64: rel {rel}")
-    stream_ms = _cuda_ms(lambda: mxv(g5, xr_d))
+    stream_ms = ms_of(lambda: mxv(g5, xr_d))
     stream_host_us = _host_us(lambda: mxv(g5, xr_d))
     _say("5-stream", n=nr, nnz=rand.nnz, variant=g5.variant,
          stream_m=g5.stream.m, permute_launches=3,
          rel_err_vs_scipy_f64=f"{rel:.3g}", mxv_ms=f"{stream_ms:.4f}",
          mxv_host_wall_us=f"{stream_host_us:.2f}",
          host_build_s=f"{stream_plan_s:.2f}")
+    del g5
 
+    # ---- 6: the BWELL path: spmv_bwell ---------------------------------
+    def bwell_pad(p, xv):
+        xp = torch.zeros(p.n_cols + bwell_spmv.X_PAD, device=dev)
+        xp[: p.n_cols] = xv
+        return xp
+
+    for name, a, mode, ppt in _bwell_cases():
+        p = bwell_spmv.pack_bwell(CSR.from_scipy(a), packs_per_tile=ppt,
+                                  mode=mode, device=dev)
+        xp = bwell_pad(p, torch.from_numpy(
+            rng.standard_normal(a.shape[1]).astype(np.float32)).to(dev))
+        got = bwell_spmv.spmv_bwell_padded(p, xp)
+        want = bwell_spmv._spmv_bwell_plain(p, xp)
+        rel = _rel_err(got.cpu(), want.cpu())
+        err["bwell_spmv"] = max(err["bwell_spmv"],
+                                float((got - want).abs().max()))
+        _check(rel <= REL_TOL, f"bwell_spmv {name}: rel err {rel}")
+        _say("6-bwell-small", case=name, shape=a.shape, mode=p.mode,
+             W=p.width, rel_err=f"{rel:.3g}")
+
+    clustered = _clustered(nb, seed=1)
+    t0 = time.perf_counter()
+    pb = bwell_spmv.pack_bwell(CSR.from_scipy(band), mode="pack",
+                               device=dev)
+    pr = bwell_spmv.pack_bwell(CSR.from_scipy(clustered), mode="auto",
+                               device=dev)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    _check(pb.mode == "pack" and pb.width == 16,
+           f"band packed as {pb.mode} W={pb.width}")
+    _check(pr.mode == "row", f"clustered matrix packed as {pr.mode!r}: "
+           "mode pack should have rejected it")
+    xs = {k: torch.from_numpy(np.random.default_rng(s).standard_normal(nb)
+                              .astype(np.float32)).to(dev)
+          for k, s in (("pack", 2), ("row", 3))}
+    bwell_spmv.LAUNCHES = 0
+    ys = {"pack": bwell_spmv.spmv_bwell(pb, xs["pack"]),
+          "row": bwell_spmv.spmv_bwell(pr, xs["row"])}
+    torch.cuda.synchronize()
+    launches["bwell_spmv"] = bwell_spmv.LAUNCHES
+    _check(launches["bwell_spmv"] == 2,
+           f"bwell path launches {launches['bwell_spmv']}")
+    bw = {}
+    for mode, p, a in (("pack", pb, band), ("row", pr, clustered)):
+        y = ys[mode]
+        _check(tuple(y.shape) == (nb,), f"spmv_bwell shape {tuple(y.shape)}")
+        rel_sp = _rel_err(y.cpu(), a.astype(np.float64)
+                          @ xs[mode].cpu().numpy().astype(np.float64))
+        xp = bwell_pad(p, xs[mode])
+        yk = bwell_spmv.spmv_bwell_padded(p, xp)
+        yp = bwell_spmv._spmv_bwell_plain(p, xp)
+        rel_pl = _rel_err(yk.cpu(), yp.cpu())
+        err["bwell_spmv"] = max(err["bwell_spmv"],
+                                float((yk - yp).abs().max()))
+        _check(rel_sp <= REL_TOL and rel_pl <= REL_TOL,
+               f"bwell {mode} n=2^20: rel vs scipy {rel_sp}, vs plain "
+               f"{rel_pl}")
+        a_t = _csr_tensor(a, dev)
+        xv = xs[mode]
+        bw[mode] = {
+            "ms": ms_of(lambda: bwell_spmv.spmv_bwell_padded(p, xp)),
+            "plain_ms": ms_of(lambda: bwell_spmv._spmv_bwell_plain(p, xp)),
+            "library_ms": ms_of(lambda: torch.mv(a_t, xv)),
+            # lanes, values, window starts and x read; y written
+            "bound": _bound(p.lanes.numel() * 4 + p.vals.numel() * 4
+                            + p.starts.numel() * 4 + xp.numel() * 4
+                            + p.rows_padded * 4, 2.0 * p.vals.numel()),
+        }
+        _say("6-bwell", n=nb, nnz=a.nnz, mode=p.mode, W=p.width,
+             slots=p.vals.numel(), rel_err_vs_scipy_f64=f"{rel_sp:.3g}",
+             rel_err_vs_plain=f"{rel_pl:.3g}",
+             kernel_ms=f"{bw[mode]['ms']:.4f}",
+             plain_ms=f"{bw[mode]['plain_ms']:.4f}",
+             cusparse_ms=f"{bw[mode]['library_ms']:.4f}",
+             bound_ms=f"{bw[mode]['bound'][0]:.4f}")
+        del a_t
+    _say("6-bwell-path", launches=launches["bwell_spmv"],
+         host_pack_s=f"{pack_s:.2f}")
+    del pb, pr, band, clustered
+
+    # ---- 7: the SpGEMM path: mxm ----------------------------------------
+    built = []
+    esc_plan = spgemm_esc.esc_plan
+
+    def recording_esc_plan(*args, **kw):
+        t0 = time.perf_counter()
+        plan = esc_plan(*args, **kw)
+        torch.cuda.synchronize()
+        built.append((plan, time.perf_counter() - t0))
+        return plan
+
+    spgemm_esc.esc_plan = recording_esc_plan    # mxm looks it up per call
+    try:
+        for name, a in (("er_32768_16", _erdos_renyi(1 << 15, 16, seed=42)),
+                        ("rmat_32768", _rmat_like(1 << 15, 1 << 19)),
+                        ("er_131072_16", _erdos_renyi(1 << 17, 16,
+                                                      seed=43))):
+            A_c = CSR.from_scipy(a)
+            built.clear()
+            t0 = time.perf_counter()
+            C = dispatch.mxm(A_c, A_c, device=dev)
+            torch.cuda.synchronize()
+            mxm_s = time.perf_counter() - t0
+            _check(len(built) == 1, f"mxm {name} did not take ESC")
+            plan, plan_s = built[0]
+            a64 = a.astype(np.float64)
+            ref = (a64 @ a64).tocsr()
+            ref.sort_indices()
+            _check(np.array_equal(C.indptr.cpu().numpy(), ref.indptr)
+                   and np.array_equal(C.indices.cpu().numpy(), ref.indices),
+                   f"mxm {name}: C's structure differs from scipy's")
+            rel = _rel_err(C.data.cpu(), ref.data)
+            _check(rel <= REL_TOL, f"mxm {name} vs scipy f64: rel {rel}")
+            t0 = time.perf_counter()
+            pd = spgemm_esc.esc_plan_device(A_c, A_c, device=dev)
+            torch.cuda.synchronize()
+            dev_plan_s = time.perf_counter() - t0
+            _check(pd.nnz == plan.nnz and pd.flops == plan.flops,
+                   f"esc_plan_device {name}: nnz {pd.nnz} vs {plan.nnz}")
+            a_d = A_c.data.to(dev)
+            num_ms = ms_of(lambda: spgemm_esc.esc_numeric(a_d, a_d, plan),
+                           reps=5)
+            if name == "er_32768_16":
+                _, stages = spgemm_esc.esc_numeric_staged(a_d, a_d, plan)
+                _say("7-esc-stages", case=name,
+                     **{k: f"{v:.4f}" for k, v in stages.items()})
+            num_us = _host_us(
+                lambda: spgemm_esc.esc_numeric(a_d, a_d, plan), reps=10)
+            a_t = _csr_tensor(a, dev)
+            lib_ms = _wall_ms(lambda: torch.sparse.mm(a_t, a_t))
+            _say("7-mxm", case=name, n=a.shape[0], nnz=a.nnz,
+                 products=plan.flops, nnz_c=plan.nnz, engine="esc",
+                 classes=len(plan.classes),
+                 m2_over_flops=f"{plan.m2 / plan.flops:.3f}",
+                 rel_err_vs_scipy_f64=f"{rel:.3g}",
+                 mxm_s=f"{mxm_s:.2f}", esc_plan_host_s=f"{plan_s:.2f}",
+                 esc_plan_device_s=f"{dev_plan_s:.2f}",
+                 esc_numeric_ms=f"{num_ms:.3f}",
+                 esc_numeric_host_wall_us=f"{num_us:.1f}",
+                 gflops=f"{2 * plan.flops / num_ms / 1e6:.2f}",
+                 sparse_mm_wall_ms=f"{lib_ms:.3f}")
+            del C, plan, pd, a_t, built[:]
+    finally:
+        spgemm_esc.esc_plan = esc_plan
+
+    rs = np.random.default_rng(7)
+    M = (rs.random((200, 200)) < 0.06) * rs.standard_normal((200, 200))
+    pat = sp.random(24, 24, 0.2, random_state=np.random.RandomState(5),
+                    format="csr")
+    K = sp.bsr_matrix((rs.standard_normal((pat.nnz, 3, 3)), pat.indices,
+                       pat.indptr), shape=(72, 72), blocksize=(3, 3)).tocsr()
+    for name, mat in (("random_200", dense_to_csr(M)),
+                      ("blocked_72", CSR.from_scipy(K))):
+        res = reg_mm.run(mat, mat, verbose=False, device=dev)
+        _check(all(ok for ok, _ in res.values()),
+               f"reg_mm {name}: {res}")
+        _say("7-reg_mm", case=name, strategies=",".join(res),
+             all_pass=True,
+             max_err=f"{max(e for _, e in res.values()):.3g}")
+
+    # ---- 8: the mv suite: dense BLAS2 at dim 4096 -----------------------
+    mv = mv_bench.run(4096, verbose=False, device=dev)
+    _say("8-mv", dim=4096, **{k: f"{v:.4f}" for k, v in mv.items()})
+
+    sources = {"permute_gather": "g4s_tpu_torch/csrc/permute.cu",
+               "wsell_spmv": "g4s_tpu_torch/csrc/wsell_spmv.cu",
+               "bwell_spmv": "g4s_tpu_torch/csrc/bwell_spmv.cu"}
+    replaces = {
+        "permute_gather": "g4s_tpu/ops/route.py:417 (_lane_benes_kernel) "
+                          "+ g4s_tpu/ops/route.py:438 (_mid_kernel)",
+        "wsell_spmv": "g4s_tpu/ops/pallas_spmv.py:491 (_wsell_kernel)",
+        "bwell_spmv": "g4s_tpu/ops/pallas_spmv.py:178 (_kernel)"}
+    ms["bwell_spmv"] = bw["pack"]["ms"]
+    plain_ms["bwell_spmv"] = bw["pack"]["plain_ms"]
+    library_ms["bwell_spmv"] = bw["pack"]["library_ms"]
+    bound["bwell_spmv"] = bw["pack"]["bound"]
     kernels = [
-        {"name": "permute_gather", "route": "cuda",
-         "source": "g4s_tpu_torch/csrc/permute.cu",
-         "replaces": "g4s_tpu/ops/route.py:417 (_lane_benes_kernel) + "
-                     "g4s_tpu/ops/route.py:438 (_mid_kernel)",
-         "launches": launches["permute_gather"],
-         "max_abs_err": err["permute_gather"],
-         "ms": ms["permute_gather"], "plain_ms": plain_ms["permute_gather"]},
-        {"name": "wsell_spmv", "route": "cuda",
-         "source": "g4s_tpu_torch/csrc/wsell_spmv.cu",
-         "replaces": "g4s_tpu/ops/pallas_spmv.py:491 (_wsell_kernel)",
-         "launches": launches["wsell_spmv"],
-         "max_abs_err": err["wsell_spmv"],
-         "ms": ms["wsell_spmv"], "plain_ms": plain_ms["wsell_spmv"]},
-    ]
+        {"name": k, "route": "cuda", "source": sources[k],
+         "replaces": replaces[k], "launches": launches[k],
+         "max_abs_err": err[k], "ms": ms[k], "plain_ms": plain_ms[k],
+         "bound_ms": bound[k][0], "bound_by": bound[k][1],
+         "library_ms": library_ms[k]}
+        for k in ("permute_gather", "wsell_spmv", "bwell_spmv")]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -6,10 +6,18 @@ names so each counterpart is easy to find, and imports neither `jax` nor
 
   g4s_tpu_torch.sparse   — COO/CSR/CSC/ELL/SELL/DIA containers, .mtx IO,
                            host conversions
-  g4s_tpu_torch.ops      — SpMV layouts, segment ops, the permute and
-                           WSELL-K kernels' wrappers, the streaming SpMV
-  g4s_tpu_torch.engine   — build_graph / mxv / vxm dispatch, semirings, GAS
+  g4s_tpu_torch.ops      — SpMV layouts, segment ops, the permute, WSELL-K
+                           and BWELL kernels' wrappers, the streaming SpMV,
+                           stream shifts, SpGEMM (two-phase, ESC, block
+                           ESC), dense BLAS2
+  g4s_tpu_torch.engine   — build_graph / mxv / vxm / mxm dispatch,
+                           operator forms, semirings, GAS
+  g4s_tpu_torch.obs      — stage timings and the device timer
+  g4s_tpu_torch.drivers  — the mm/ and mv/ benchmark and regression drivers
   g4s_tpu_torch.kernels  — the nvcc build and ctypes loader of csrc/*.cu
+
+Entry points take `device="cuda"` by default; pass device="cpu" to run on
+the CPU, where every kernel wrapper runs its plain PyTorch version.
 """
 
 __version__ = "0.1.0"

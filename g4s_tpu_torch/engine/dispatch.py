@@ -11,7 +11,10 @@ on a CUDA `device`.
 
 Semiring-generic: padded slots are neutralized with the semiring's
 additive identity, so min-plus/or-and algebras run through the same paths.
-The SpGEMM entry `mxm` is not part of this package yet.
+
+`mxm` is the SpGEMM entry: the two-phase engine (ops/spgemm.py), or for
+plus-times on a CUDA device with enough products the ESC engine
+(ops/spgemm_esc.py).
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ from g4s_tpu_torch.ops.route import build_permute_plan, permute_gather
 from g4s_tpu_torch.ops.segment import segment_reduce
 from g4s_tpu_torch.ops.stream_spmv import StreamPlan
 from g4s_tpu_torch.ops.wsell_spmv import WSELL
-from g4s_tpu_torch.sparse.containers import CSR, DIA, ELL, as_numpy, as_tensor
+from g4s_tpu_torch.sparse.containers import (CSR, DIA, ELL, as_numpy,
+                                              as_tensor, resolve_device)
 from g4s_tpu_torch.sparse.convert import csr_to_dense, csr_to_dia, csr_to_ell
 
 _ADD_OPS = {"plus_times": "add", "min_plus": "min", "max_plus": "max",
@@ -66,7 +70,7 @@ def _i32(a, device) -> torch.Tensor:
     return as_tensor(a, np.int32).to(device)
 
 
-def build_graph(a: CSR, *, device, variant: str | None = None,
+def build_graph(a: CSR, *, device="cuda", variant: str | None = None,
                 max_padding_waste: float = 1.5, pad_to: int = 8,
                 max_diags: int = 48, dense_threshold: int = 1 << 21,
                 dtype=None, reorder: bool = True) -> Graph:
@@ -77,7 +81,7 @@ def build_graph(a: CSR, *, device, variant: str | None = None,
     Order of preference: DIA (banded, gather-free), DENSE (small or
     dense-ish operators), RCM renumbering to DIA, then on CUDA WSELL-K or
     the streaming schedule, then ELL (uniform degrees) or CSR (skew)."""
-    device = torch.device(device)
+    device = resolve_device(device)
     return _build_graph(a, device=device,
                         kernel_layouts=device.type == "cuda",
                         variant=variant, max_padding_waste=max_padding_waste,
@@ -204,7 +208,8 @@ def _build_graph(a: CSR, *, device, kernel_layouts: bool, variant,
                  None, None, "csr", a.shape)
 
 
-def graph_from_reference(arrays: dict, meta: dict, *, device) -> Graph:
+def graph_from_reference(arrays: dict, meta: dict, *,
+                         device="cuda") -> Graph:
     """Build the port's Graph from the parts of a g4s_tpu Graph, so both
     packages compute from the same operator.
 
@@ -220,6 +225,8 @@ def graph_from_reference(arrays: dict, meta: dict, *, device) -> Graph:
     "dia.offsets", "wsell" (a dict of width, ppt, k, groups) and "stream"
     (a dict of col_classes, slices, m, nc_pad, nr_pad).
     """
+    device = resolve_device(device)
+
     def t(name):
         v = arrays.get(name)
         return None if v is None else as_tensor(v).to(device)
@@ -381,3 +388,40 @@ def vxm(g: Graph, x, *, semiring: Semiring = PLUS_TIMES, mask=None):
         y = segment_reduce(prod, csr.indices, g.shape[1],
                            op=_ADD_OPS[semiring.name])
     return _masked(y, mask, semiring)
+
+
+_ESC_MIN_FLOPS = 1 << 18       # products; below this the take path wins
+
+
+def mxm(a: CSR, b: CSR, *, semiring: Semiring = PLUS_TIMES, plan=None,
+        device="cuda") -> CSR:
+    """C = A (+.x) B through the two-phase symbolic/numeric engine.
+
+    With no plan, plus-times on a CUDA device with at least
+    _ESC_MIN_FLOPS products takes the ESC engine (ops/spgemm_esc.py);
+    small products, the CPU and the other semirings take the gather path
+    (ESC's broadcast expansion is specific to (+, *)). The reference gates
+    ESC on a non-CPU JAX backend; the port on a CUDA `device`. Pass a
+    SpGEMMPlan or an ESCPlan to pin the engine: the product then runs
+    where the plan lives."""
+    from g4s_tpu_torch.ops.spgemm import spgemm_flops, spgemm_plan
+    from g4s_tpu_torch.ops.spgemm_esc import ESCPlan, esc_numeric, esc_plan
+    if plan is None:
+        device = resolve_device(device)
+        if (semiring is PLUS_TIMES and device.type == "cuda"
+                and spgemm_flops(a, b) // 2 >= _ESC_MIN_FLOPS):
+            plan = esc_plan(a, b, device=device)
+        else:
+            plan = spgemm_plan(a, b, device=device)
+    if isinstance(plan, ESCPlan):
+        if semiring is not PLUS_TIMES:
+            raise NotImplementedError("ESC plans implement plus_times only")
+        c_data = esc_numeric(a.data, b.data, plan)
+        return CSR(plan.c_indptr, plan.c_indices, c_data, plan.shape)
+    dev = plan.device
+    prod = semiring.mul(a.data.to(dev)[plan.src_a.long()],
+                        b.data.to(dev)[plan.src_b.long()])
+    c_data = segment_reduce(prod, plan.slot, plan.nnz,
+                            op=_ADD_OPS[semiring.name],
+                            indices_are_sorted=True)
+    return CSR(plan.c_indptr, plan.c_indices, c_data, plan.shape)

@@ -1,6 +1,7 @@
 """Build g4s_tpu_torch/csrc/*.cu into one shared library and load it.
 
-nvcc compiles every source in one call, for Hopper only, into
+nvcc compiles each source, for Hopper only, in its own process (all
+started together) and links the objects into
 `g4s_tpu_torch/_build/libg4s_kernels_<hash>.so`, where the hash covers the
 sources and the flags: a changed source builds anew, an unchanged one is
 loaded as built. The sources expose a plain C interface (no PyTorch
@@ -25,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 # -Xptxas -v only reports each kernel's registers, shared memory and spills
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -37,6 +38,7 @@ SIGNATURES = {
     "g4s_permute_gather_f64": (_P, _P, _P, _I64, _P),
     "g4s_wsell_spmv_f32": (_P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _INT,
                            _P),
+    "g4s_bwell_spmv_f32": (_P, _P, _P, _P, _P, _I64, _INT, _INT, _INT, _P),
 }
 
 
@@ -68,28 +70,41 @@ def library_path() -> Path:
 
 
 def build() -> tuple[Path, str]:
-    """Compile the sources if their library is missing. Returns the
-    library's path and nvcc's output (empty when nothing was built)."""
+    """Compile the sources if their library is missing: one nvcc process
+    per source, all started together, then one link. Returns the library's
+    path and nvcc's output (empty when nothing was built)."""
     out = library_path()
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *map(str, sources())]
-    try:
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in sources():
+            cmd = [nvcc(), *NVCC_FLAGS, "-c", "-o",
+                   str(Path(tmp) / f"{src.stem}.o"), str(src)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = "", []
+        for cmd, proc in procs:
+            text, _ = proc.communicate()
+            log += text
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): "
+                              f"{' '.join(cmd)}\n{text}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        lib = Path(tmp) / out.name
+        cmd = [nvcc(), "-shared", "-o", str(lib),
+               *(str(Path(tmp) / f"{s.stem}.o") for s in sources())]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stdout}"
+                               f"{proc.stderr}")
         # atomic rename: a concurrent build never loads a partial file
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out, proc.stdout + proc.stderr
+        os.replace(lib, out)
+    return out, log + proc.stdout + proc.stderr
 
 
 @functools.cache

@@ -1,0 +1,115 @@
+"""Stage timing and GFLOPS reporting (counterpart of the `Timings` class
+of g4s_tpu/obs/timings.py, the reference SpGEMM suite's per-stage
+milliseconds plus total GFLOPS), and the per-call device timer the
+drivers use.
+
+On a CUDA device a stage is timed by CUDA events recorded on the current
+stream before and after it: the span runs until the device has finished
+the stage's work, whether the host or the device was the slower. On the
+CPU the host clock times it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import statistics
+import time
+from collections import OrderedDict
+from typing import Dict, Optional
+
+import torch
+
+from g4s_tpu_torch.sparse.containers import resolve_device
+
+
+class Timings:
+    """Accumulates named stage durations; prints a Timings-style report."""
+
+    def __init__(self, name: str = "", *, device="cuda"):
+        self.name = name
+        self.device = resolve_device(device)
+        self.stages: "OrderedDict[str, float]" = OrderedDict()
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        if self.device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            try:
+                yield
+            finally:
+                end.record()
+                end.synchronize()
+                self.record(name, start.elapsed_time(end) / 1e3)
+        else:
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                self.record(name, time.perf_counter() - t0)
+
+    def record(self, name: str, seconds: float):
+        self.stages[name] = self.stages.get(name, 0.0) + seconds
+
+    @property
+    def total(self) -> float:
+        return sum(self.stages.values())
+
+    def report(self, *, flops: Optional[int] = None) -> str:
+        lines = [f"=== Timings {self.name} ==="]
+        for k, v in self.stages.items():
+            lines.append(f"  {k:<12s} {v * 1e3:10.3f} ms")
+        lines.append(f"  {'total':<12s} {self.total * 1e3:10.3f} ms")
+        if flops is not None and self.total > 0:
+            lines.append(f"  GFLOPS {flops / self.total / 1e9:10.3f}")
+        return "\n".join(lines)
+
+    def as_dict(self) -> Dict[str, float]:
+        d = dict(self.stages)
+        d["total"] = self.total
+        return d
+
+
+def device_ms(fn, *, device="cuda", reps: int = 30, warmup: int = 3) -> float:
+    """Median time of one fn() call in ms, over `reps` back-to-back calls.
+
+    On a CUDA device: CUDA events between the calls. Enqueueing one call
+    can take the host longer than the device takes to run it, and an event
+    pair around a call on an idle device then times the host; so the
+    device first sleeps while the host queues every call and event, and if
+    the device reached the first event before the host had queued them
+    all, the batch is repeated with a longer sleep, and then with fewer
+    calls: the device's launch queue holds about a thousand launches, and
+    a host that queues more blocks until the device drains them. On the
+    CPU: the host clock around each call."""
+    device = resolve_device(device)
+    for _ in range(warmup):
+        fn()
+    if device.type != "cuda":
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+    torch.cuda.synchronize()
+    cycles = 1 << 26
+    for _ in range(8):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+        torch.cuda._sleep(cycles)
+        ev[0].record()
+        for e in ev[1:]:
+            fn()
+            e.record()
+        drained = ev[0].query()
+        torch.cuda.synchronize()
+        if not drained:
+            return statistics.median(
+                a.elapsed_time(b) for a, b in zip(ev, ev[1:]))
+        if cycles < 1 << 30:
+            cycles *= 4
+        elif reps > 1:
+            reps //= 2
+    raise RuntimeError("the host could not queue the timed calls ahead of "
+                       "the device")

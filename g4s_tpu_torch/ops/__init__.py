@@ -11,3 +11,18 @@ from g4s_tpu_torch.ops.wsell_spmv import (  # noqa: F401
 from g4s_tpu_torch.ops.stream_spmv import (  # noqa: F401
     StreamPlan, build_stream_plan, spmv_stream,
 )
+from g4s_tpu_torch.ops.bwell_spmv import (  # noqa: F401
+    BWELL, bwell_from_reference, pack_bwell, spmv_bwell, spmv_bwell_padded,
+)
+from g4s_tpu_torch.ops.spgemm import (  # noqa: F401
+    SpGEMMPlan, spgemm_device_csr, spgemm_device_full,
+    spgemm_device_merge, spgemm_expand_map, spgemm_flops, spgemm_numeric,
+    spgemm_plan, spgemm_via_csc,
+)
+from g4s_tpu_torch.ops.spgemm_esc import (  # noqa: F401
+    ESCPlan, esc_numeric, esc_numeric_staged, esc_plan, esc_plan_device,
+    materialize_structure, spgemm_esc_col,
+)
+from g4s_tpu_torch.ops.spgemm_block import (  # noqa: F401
+    BlockPlan, block_c_to_scipy, block_cover, block_numeric, block_plan,
+)

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from g4s_tpu_torch.kernels import _build
-from g4s_tpu_torch.sparse.containers import as_tensor
+from g4s_tpu_torch.sparse.containers import as_tensor, resolve_device
 
 C = 128               # the reference's lane width
 TILE = C * C          # plan granularity: m is padded to a multiple of 128^2
@@ -39,10 +39,11 @@ class PermutePlan:
     m: int
 
 
-def build_permute_plan(sigma, *, device) -> PermutePlan:
+def build_permute_plan(sigma, *, device="cuda") -> PermutePlan:
     """Plan for out[i] = in[sigma[i]]; sigma (m0,) is a bijection on
     [0, m0). The plan pads to m = roundup(m0, TILE) with identity on the
     tail; callers pad the input with anything."""
+    device = resolve_device(device)
     sigma = np.asarray(sigma, np.int64)
     m0 = sigma.size
     m = -(-m0 // TILE) * TILE

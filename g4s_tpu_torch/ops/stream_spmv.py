@@ -27,7 +27,7 @@ import torch
 
 from g4s_tpu_torch.ops.route import (MAX_M, TILE, PermutePlan, apply_permute,
                                      build_permute_plan)
-from g4s_tpu_torch.sparse.containers import as_tensor
+from g4s_tpu_torch.sparse.containers import as_tensor, resolve_device
 
 
 def _ladder_up(deg: np.ndarray) -> np.ndarray:
@@ -126,9 +126,11 @@ def _extract_hubs(sp_a, n_rows, n_cols):
     return rem, hub_cols, Dc, hub_rows, Dr
 
 
-def build_stream_plan(a, *, device, hub_split: bool = True) -> StreamPlan:
+def build_stream_plan(a, *, device="cuda",
+                      hub_split: bool = True) -> StreamPlan:
     """Compile the streaming schedule for a CSR container or scipy matrix
     (host-side, once per pattern) and stage it on `device`."""
+    device = resolve_device(device)
     sp_a = a.to_scipy().tocsr() if hasattr(a, "to_scipy") else a.tocsr()
     n_rows, n_cols = sp_a.shape
     hub_cols = Dc = hub_rows = Dr = None

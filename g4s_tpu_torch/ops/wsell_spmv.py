@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 from g4s_tpu_torch.kernels import _build
-from g4s_tpu_torch.sparse.containers import CSR, as_numpy, as_tensor
+from g4s_tpu_torch.sparse.containers import (CSR, as_numpy, as_tensor,
+                                              resolve_device)
 from g4s_tpu_torch.sparse.convert import ell_arrays
 
 # launches of the wsell_spmv kernel (CUDA tensors only)
@@ -99,13 +100,14 @@ def wsell_block_sort_perm(a: CSR, *, width: Optional[int] = None,
     return perm.astype(np.int64)
 
 
-def pack_wsell(a: CSR, *, device, width: Optional[int] = None,
+def pack_wsell(a: CSR, *, device="cuda", width: Optional[int] = None,
                packs_per_tile: int = 128, k_max: int = 32,
                dtype=torch.float32) -> WSELL:
     """Host-side packer: choose W from the max degree, group rows into
     packs of 8*(128/W), and give each pack the sorted set of distinct
     128-aligned x-blocks its columns touch. Raises ValueError when any pack
     needs more than k_max windows (the caller picks another layout)."""
+    device = resolve_device(device)
     if k_max > 255:
         raise ValueError("k_max > 255 overflows the int16 lane encoding")
     deg = np.diff(as_numpy(a.indptr))

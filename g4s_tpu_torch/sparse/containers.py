@@ -41,6 +41,18 @@ def as_numpy(a) -> np.ndarray:
     return np.asarray(a)
 
 
+def resolve_device(device) -> torch.device:
+    """The torch.device of an entry point's `device` argument. Entry points
+    default to "cuda"; asking for CUDA where there is no card raises here
+    rather than letting the work drift to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' asked for, but torch sees no CUDA card; pass "
+            "device='cpu' to run on the CPU")
+    return device
+
+
 def _to(obj, device):
     """Copy of a container dataclass with every tensor field on `device`."""
     kw = {}

@@ -13,7 +13,7 @@ import scipy.sparse as sp
 import torch
 
 from g4s_tpu_torch.engine import build_graph, mxv
-from g4s_tpu_torch.ops import route, wsell_spmv
+from g4s_tpu_torch.ops import bwell_spmv, route, wsell_spmv
 from g4s_tpu_torch.sparse import CSR
 
 pytestmark = pytest.mark.cuda
@@ -83,3 +83,55 @@ def test_stencil_dispatches_to_wsell(cuda):
     x = rng.standard_normal(a.shape[0]).astype(np.float32)
     y = mxv(g, torch.from_numpy(x).to(cuda)).cpu().numpy()
     np.testing.assert_allclose(y, a.astype(np.float64) @ x, atol=1e-4)
+
+
+@pytest.mark.parametrize("mode,offs", [
+    ("pack", list(range(-7, 9))),     # the 16-diagonal band, W = 16
+    ("row", list(range(-7, 9))),
+    ("row", [0, 1]),                  # W = 2: 512-row packs, mode row
+])
+def test_bwell_kernel_matches_plain(cuda, mode, offs):
+    rng = np.random.default_rng(2)
+    n = 4096
+    a = sp.diags([rng.standard_normal(n - abs(o)) for o in offs], offs,
+                 shape=(n, n), format="csr").astype(np.float32)
+    packed = bwell_spmv.pack_bwell(CSR.from_scipy(a), packs_per_tile=4,
+                                   mode=mode, device=cuda)
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda)
+    before = bwell_spmv.LAUNCHES
+    got = bwell_spmv.spmv_bwell(packed, x, packs_per_batch=2)
+    assert bwell_spmv.LAUNCHES == before + 1
+    x_pad = torch.zeros(n + bwell_spmv.X_PAD, device=cuda)
+    x_pad[:n] = x
+    want = bwell_spmv._spmv_bwell_plain(packed, x_pad)[:n]
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    with pytest.raises(TypeError):
+        bwell_spmv.spmv_bwell(packed, x.double())
+
+
+def test_mxm_on_cuda_takes_esc(cuda):
+    """Plus-times with >= 2^18 products on a CUDA device dispatches to ESC
+    and matches scipy: structure exactly, values to 1e-5."""
+    from g4s_tpu_torch.engine import dispatch
+    from g4s_tpu_torch.ops import spgemm_esc
+    n = 1 << 12
+    rng = np.random.default_rng(3)
+    nnz = n * 16
+    a = sp.coo_matrix((rng.standard_normal(nnz).astype(np.float32),
+                       (rng.integers(0, n, nnz), rng.integers(0, n, nnz))),
+                      shape=(n, n)).tocsr()
+    A = CSR.from_scipy(a)
+    calls = []
+    orig = spgemm_esc.esc_numeric
+    spgemm_esc.esc_numeric = lambda *args: calls.append(1) or orig(*args)
+    try:
+        c = dispatch.mxm(A, A, device=cuda)
+    finally:
+        spgemm_esc.esc_numeric = orig
+    assert calls == [1]
+    ref = (a.astype(np.float64) @ a.astype(np.float64)).tocsr()
+    ref.sort_indices()
+    np.testing.assert_array_equal(c.indptr.cpu().numpy(), ref.indptr)
+    np.testing.assert_array_equal(c.indices.cpu().numpy(), ref.indices)
+    got = c.data.cpu().numpy().astype(np.float64)
+    assert np.abs(got - ref.data).max() <= 1e-5 * np.abs(ref.data).max()

@@ -384,9 +384,9 @@ def test_graph_from_reference(interpret, variant):
 def _cuda_rules_graph(a, **kw):
     """The graph build_graph(device="cuda") would build, on CPU tensors:
     the dispatcher's own build function with its kernel-layout gate set."""
-    args = {k: p.default for k, p in
-            inspect.signature(dispatch.build_graph).parameters.items()
-            if p.default is not inspect.Parameter.empty}
+    params = inspect.signature(dispatch.build_graph).parameters.items()
+    args = {k: p.default for k, p in params
+            if p.default is not inspect.Parameter.empty and k != "device"}
     args.update(kw)
     return dispatch._build_graph(PCSR.from_scipy(a), device=torch.device("cpu"),
                                  kernel_layouts=True, **args)
@@ -431,3 +431,14 @@ def test_slice_cuda_rules_on_cpu(case):
     x = _x(a.shape[1], seed=11)
     y = _both(P.mxv(g, torch.from_numpy(x)), R.mxv(gr, _jx(x)))
     np.testing.assert_allclose(y, a.astype(np.float64) @ x, atol=1e-4)
+
+
+def test_build_graph_defaults_to_cuda():
+    """Entry points run on the card unless the caller asks for the CPU:
+    with no card, build_graph(a) raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        P.build_graph(PCSR.from_scipy(_band()))
+    assert inspect.signature(P.build_graph).parameters["device"].default \
+        == "cuda"
