@@ -8,18 +8,30 @@ Run from the root of a checkout: `python3 chip_smoke.py`. It
   1. builds the hand-written kernels from g4s_tpu_torch/csrc/ (one nvcc
      per source, all started together);
   2. holds each kernel against its plain PyTorch version on the card:
-     permute_gather bit-exact (m = 2^20, f32 and f64), wsell_spmv within a
-     relative 1e-5 on the multi-window, rectangular, W=2 and W=16 packs;
+     permute_gather bit-exact (m = 2^20, f32 and f64, and its fused
+     cases: lengths 2^20 + 0..7, sigma reaching past len(z), n_out >
+     len(sigma), sigma and z as offset views), wsell_spmv
+     within a relative 1e-5 on the multi-window, rectangular, W=2 and W=16
+     packs;
   3. drives the SpMV main path, build_graph + mxv, on the randomly
      renumbered 3D 7-point stencil at nx = 101 (n = 1,030,301): it must
-     dispatch to "wsell" with an RCM permutation, launch both kernels, and
-     match scipy in f64 to a relative 1e-5 (f32 sums of 7 terms in another
-     order); both kernels are compared and timed at the shapes this path
-     gives them, beside their plain versions and the library call
-     (cuSPARSE CSR SpMV, z[sigma]), and mxv's host wall time per call is
-     timed beside it;
+     dispatch to "wsell" with an RCM permutation, launch both kernels, run
+     three device kernels per mxv (two permutes and WSELL, counted by
+     torch.profiler), and match scipy in f64 to a relative 1e-5 (f32 sums
+     of 7 terms in another order); both kernels are compared and timed at
+     the shapes this path gives them, beside their plain versions and the
+     library call (cuSPARSE CSR SpMV, z[sigma]), and mxv's host wall time
+     per call is timed beside it;
   4. the shuffled 16-diagonal band at n = 2^20 -> "dia" with a permutation;
   5. a uniform random 2^17 x 8-per-row matrix -> "stream", 3 permutes;
+     at each of the six permutations of phases 3-5 (stencil perm and
+     iperm, the band's perm, the stream's xplan, route2 and rowplan) the
+     permute kernel is held bit-exact against its plain version in f32 and
+     f64 and timed warm and with L2 flushed (a 128 MiB fill before each
+     call), beside its bound, z[sigma] warm and cold, itself over the
+     identity sigma (what the random sector reads cost), and two library
+     passes over the same lengths that read and write only whole lines: a
+     copy of n_out elements and an add that moves the bound's bytes;
   6. the BWELL path, spmv_bwell: the bwell_spmv kernel against its plain
      version on four small packs (modes pack and row, W = 16 and 2), then at
      n = 2^20 on the unshuffled band of phase 4 (mode pack, W = 16) and on
@@ -36,7 +48,8 @@ Run from the root of a checkout: `python3 chip_smoke.py`. It
   8. the mv suite: the four dense BLAS2 products at dim 4096.
 
 Device times are medians per call between back-to-back calls queued
-behind a device sleep (g4s_tpu_torch.obs.timings.device_ms). Each phase
+behind a device sleep (g4s_tpu_torch.obs.timings.device_ms); "cold" times
+flush L2 before each call, outside its event pair. Each phase
 prints one line; any failure raises. The line before the last is the
 card's name and power limit, the one before it a JSON object describing
 each kernel; the last is the result line. Fails (exit code 1, no result
@@ -45,8 +58,10 @@ line) without CUDA or outside the repo.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -115,6 +130,16 @@ def _rel_err(y, ref) -> float:
 def _check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def _kernel_names(names) -> str:
+    """Device activity names, shortened and counted, as compact JSON."""
+    short = []
+    for name in names:
+        name = name.replace("(anonymous namespace)::", "")
+        hit = re.match(r"(?:void\s+)?([\w:]+)", name)
+        short.append((hit.group(1) if hit else name).split("::")[-1])
+    return json.dumps(collections.Counter(short)).replace(" ", "")
 
 
 def _csr_tensor(a, dev):
@@ -279,14 +304,91 @@ def main() -> int:
     from g4s_tpu_torch.drivers import mv_bench, reg_mm
     from g4s_tpu_torch.engine import build_graph, dispatch, mxv
     from g4s_tpu_torch.kernels import _build
-    from g4s_tpu_torch.obs.timings import device_ms
+    from g4s_tpu_torch.obs.timings import device_kernels, device_ms
     from g4s_tpu_torch.ops import bwell_spmv, route, spgemm_esc, wsell_spmv
     from g4s_tpu_torch.sparse import CSR, dense_to_csr
 
     dev = torch.device("cuda")
 
-    def ms_of(fn, reps: int = 20) -> float:
-        return device_ms(fn, device=dev, reps=reps)
+    def ms_of(fn, reps: int = 20, before=None) -> float:
+        return device_ms(fn, device=dev, reps=reps, before=before)
+
+    # writing 128 MiB evicts the 50 MB L2: the cold timings run this
+    # before each call
+    flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+
+    def flush_l2():
+        flush_buf.fill_(1)
+
+    def permute_path(phase, name, sigma, n_z, n_out):
+        """The permute kernel at one of the main path's permutations: held
+        bit-exact against its plain version on a z of the path's length in
+        f32 and f64, and timed warm and cold beside its plain version,
+        z[sigma] (z padded with zeros where sigma reaches past it, the
+        gather the unfused code ran), the bound, and the kernel over the
+        identity sigma of the same length, whose reads of z are whole
+        lines: the gap between the two is the cost of sigma's random
+        32-byte sector reads. Two library passes that read and write
+        whole lines time what one pass over these lengths costs on the
+        card: a copy of n_out elements, and an add of two n_out-element
+        vectors into a third, which moves the bound's bytes (the int32
+        sigma read as f32)."""
+        m_ = sigma.shape[0]
+        z = torch.from_numpy(np.random.default_rng(m_).standard_normal(n_z)
+                             .astype(np.float32)).to(dev)
+        for zz in (z, z.double()):
+            got = route.permute_gather(zz, sigma, n_out=n_out)
+            _check(torch.equal(got, route._apply_permute_plain(
+                zz, sigma, n_out=n_out)),
+                f"permute_gather at {name} {zz.dtype}: not bit-exact")
+        top = int(sigma.max()) + 1
+        z_lib = z if top <= n_z else torch.cat([z, z.new_zeros(top - n_z)])
+        # the z elements sigma reaches, each read once
+        reads = int(torch.unique(sigma[sigma < n_z]).numel())
+        ident = torch.arange(m_, dtype=torch.int32, device=dev)
+        src = torch.zeros(n_out, device=dev)
+        sig_f = torch.zeros(n_out, device=dev)
+        sig_f[:m_] = sigma.view(torch.float32)
+        dst = torch.empty(n_out, device=dev)
+
+        def gather():
+            return route.permute_gather(z, sigma, n_out=n_out)
+
+        r = {
+            "ms": ms_of(gather), "cold_ms": ms_of(gather, before=flush_l2),
+            "identity_ms": ms_of(lambda: route.permute_gather(
+                z, ident, n_out=n_out)),
+            "plain_ms": ms_of(lambda: route._apply_permute_plain(
+                z, sigma, n_out=n_out)),
+            "copy_ms": ms_of(lambda: dst.copy_(src)),
+            "add_ms": ms_of(lambda: torch.add(src, sig_f, out=dst)),
+            "add_cold_ms": ms_of(lambda: torch.add(src, sig_f, out=dst),
+                                 before=flush_l2),
+            "library_ms": ms_of(lambda: z_lib[sigma]),
+            "library_cold_ms": ms_of(lambda: z_lib[sigma], before=flush_l2),
+            # sigma (int32) and the z it reaches read, out written (f32)
+            "bound": _bound(4.0 * (m_ + reads + n_out), 0),
+        }
+        # random sector reads per second that the gap between sigma and the
+        # identity pays for; none where launch costs hide the gap
+        gap = r["ms"] - r["identity_ms"]
+        rate = (f"{reads / 1e6 / gap:.1f}" if gap > 0.2 * r["identity_ms"]
+                else "n/a")
+        _say(phase, path=name, m=m_, n_z=n_z, n_out=n_out,
+             bit_exact="f32,f64", kernel_ms=f"{r['ms']:.4f}",
+             kernel_cold_ms=f"{r['cold_ms']:.4f}",
+             x_sigma_ms=f"{r['library_ms']:.4f}",
+             x_sigma_cold_ms=f"{r['library_cold_ms']:.4f}",
+             plain_ms=f"{r['plain_ms']:.4f}",
+             bound_ms=f"{r['bound'][0]:.4f}",
+             share_of_bound=f"{r['bound'][0] / r['ms']:.3f}",
+             cold_share_of_bound=f"{r['bound'][0] / r['cold_ms']:.3f}",
+             identity_sigma_ms=f"{r['identity_ms']:.4f}",
+             random_sectors_g_per_s=rate,
+             library_copy_ms=f"{r['copy_ms']:.4f}",
+             library_add_same_bytes_ms=f"{r['add_ms']:.4f}",
+             library_add_cold_ms=f"{r['add_cold_ms']:.4f}")
+        return r
 
     smi = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"]).splitlines()[0]
@@ -316,6 +418,26 @@ def main() -> int:
         want = route._apply_permute_plain(z, sigma)
         _check(torch.equal(got, want), f"permute_gather {dt} not bit-exact")
     _say("2-permute", m=m, dtypes="f32,f64", bit_exact=True)
+    # the fused cases: lengths 2^20 + r, z 1000 shorter than sigma's range,
+    # n_out past len(sigma), sigma and z as views at offsets 0-3 into their
+    # allocations
+    n_cases = 0
+    for dt in (torch.float32, torch.float64):
+        for r in range(8):
+            mr, off_s, off_z = m + r, r % 4, (r // 2) % 4
+            sig = torch.from_numpy(rng.permutation(mr + off_s)
+                                   .astype(np.int32)).to(dev)[off_s:]
+            z = torch.from_numpy(rng.standard_normal(mr - 1000 + off_z)) \
+                .to(dev, dt)[off_z:]
+            n_out = mr + 8 + r
+            got = route.permute_gather(z, sig, n_out=n_out)
+            _check(got.shape == (n_out,) and torch.equal(
+                got, route._apply_permute_plain(z, sig, n_out=n_out)),
+                f"permute_gather fused {dt} r={r}: not bit-exact")
+            n_cases += 1
+    _say("2-permute-fused", cases=n_cases, lengths="2^20+0..7",
+         dtypes="f32,f64", sigma_past_z=1000, n_out="m+8+r",
+         offsets="sigma 0..3, z 0..3", bit_exact=True)
     for name, a in _wsell_cases():
         packed = wsell_spmv.pack_wsell(CSR.from_scipy(a), device=dev,
                                        packs_per_tile=2)
@@ -350,12 +472,13 @@ def main() -> int:
 
     x_np = np.random.default_rng(1).standard_normal(n).astype(np.float32)
     x = torch.from_numpy(x_np).to(dev)
-    x_pad = torch.zeros(wsell_spmv._chain_pad(g.wsell), device=dev)
+    n_pad = wsell_spmv._chain_pad(g.wsell)
+    x_pad = torch.zeros(n_pad, device=dev)
     x_pad[:n] = x
-    # kernels vs plain at the main path's shapes
-    p_k = route.permute_gather(x, g.perm)
-    p_p = route._apply_permute_plain(x, g.perm)
-    _check(torch.equal(p_k, p_p), "permute_gather at n: not bit-exact")
+    # kernels vs plain at the main path's shapes: the permute gathers x
+    # into the chain-padded input and the padded y back to n
+    p_in = permute_path("3-permute-path", "stencil.perm", g.perm, n, n_pad)
+    permute_path("3-permute-path", "stencil.iperm", g.iperm, n_pad, n)
     w_k = wsell_spmv.spmv_wsell_chain(g.wsell, x_pad)
     w_p = wsell_spmv._spmv_wsell_plain(g.wsell, x_pad)
     rel = _rel_err(w_k.cpu(), w_p.cpu())
@@ -371,24 +494,22 @@ def main() -> int:
     rel_lib = _rel_err(torch.mv(A_p_t, x_n).cpu(), w_k[:n].cpu())
     _check(rel_lib <= REL_TOL, f"cuSPARSE vs wsell_spmv: rel {rel_lib}")
     ms = {
-        "permute_gather": ms_of(lambda: route.permute_gather(x, g.perm)),
+        "permute_gather": p_in["ms"],
         "wsell_spmv": ms_of(
             lambda: wsell_spmv.spmv_wsell_chain(g.wsell, x_pad)),
     }
     plain_ms = {
-        "permute_gather": ms_of(
-            lambda: route._apply_permute_plain(x, g.perm)),
+        "permute_gather": p_in["plain_ms"],
         "wsell_spmv": ms_of(
             lambda: wsell_spmv._spmv_wsell_plain(g.wsell, x_pad)),
     }
     library_ms = {
-        "permute_gather": ms_of(lambda: x[g.perm]),
+        "permute_gather": p_in["library_ms"],
         "wsell_spmv": ms_of(lambda: torch.mv(A_p_t, x_n)),
     }
     ws = g.wsell
     bound = {
-        # z (f32) and sigma (int32) read, out (f32) written
-        "permute_gather": _bound(12.0 * n, 0),
+        "permute_gather": p_in["bound"],
         # codes (int16), values, window starts, x read; y written; one FMA
         # per stored slot
         "wsell_spmv": _bound(ws.lanes.numel() * 2 + ws.vals.numel() * 4
@@ -397,9 +518,8 @@ def main() -> int:
     }
 
     def mxv_plain():
-        xp = torch.zeros_like(x_pad)
-        xp[:n] = route._apply_permute_plain(x, g.perm)
-        y_p = wsell_spmv._spmv_wsell_plain(g.wsell, xp)[:n]
+        xp = route._apply_permute_plain(x, g.perm, n_out=n_pad)
+        y_p = wsell_spmv._spmv_wsell_plain(g.wsell, xp)
         return route._apply_permute_plain(y_p, g.iperm)
 
     mxv_ms = ms_of(lambda: mxv(g, x))
@@ -434,6 +554,13 @@ def main() -> int:
     _check(rel <= REL_TOL, f"stencil mxv vs scipy f64: rel {rel}")
     _say("3-mxv", launches=json.dumps(launches).replace(" ", ""),
          rel_err_vs_scipy_f64=f"{rel:.3g}")
+    names = device_kernels(lambda: mxv(g, x))
+    n_perm = sum("permute_gather" in k for k in names)
+    _check(len(names) == 3 and n_perm == 2
+           and sum("wsell_spmv" in k for k in names) == 1,
+           f"stencil mxv runs {len(names)} device kernels: {names}")
+    _say("3-kernels", device_kernels_per_mxv=len(names),
+         permute_gather=n_perm, names=_kernel_names(names))
     del g, A
 
     # ---- 4: RCM-DIA: the shuffled 16-diagonal band ----------------------
@@ -453,6 +580,7 @@ def main() -> int:
     _check(rel <= REL_TOL, f"dia mxv vs scipy f64: rel {rel}")
     _say("4-dia", n=nb, variant=g4.variant, ndiag=g4.dia.ndiag,
          permute_launches=route.LAUNCHES, rel_err_vs_scipy_f64=f"{rel:.3g}")
+    permute_path("4-permute-path", "dia.perm", g4.perm, nb, nb)
     del g4, shuf
 
     # ---- 5: the streaming schedule: uniform random 2^17 x 8 -------------
@@ -482,6 +610,18 @@ def main() -> int:
          rel_err_vs_scipy_f64=f"{rel:.3g}", mxv_ms=f"{stream_ms:.4f}",
          mxv_host_wall_us=f"{stream_host_us:.2f}",
          host_build_s=f"{stream_plan_s:.2f}")
+    names = device_kernels(lambda: mxv(g5, xr_d))
+    n_perm = sum("permute_gather" in k for k in names)
+    _check(n_perm == 3, f"stream mxv runs {n_perm} permutes: {names}")
+    _say("5-kernels", device_kernels_per_mxv=len(names),
+         permute_gather=n_perm, names=_kernel_names(names))
+    s5 = g5.stream
+    permute_path("5-permute-path", "stream.xplan", s5.xplan.sigma, nr,
+                 s5.nc_pad)
+    permute_path("5-permute-path", "stream.route2", s5.route2.sigma, s5.m,
+                 s5.m)
+    permute_path("5-permute-path", "stream.rowplan",
+                 s5.rowplan.sigma[: s5.n_rows], s5.n_rows, s5.n_rows)
     del g5
 
     # ---- 6: the BWELL path: spmv_bwell ---------------------------------

@@ -272,11 +272,12 @@ def graph_from_reference(arrays: dict, meta: dict, *,
                  stream=stream)
 
 
-def permute_in(g: Graph, x: torch.Tensor) -> torch.Tensor:
-    """x -> permuted space, x[perm] (permute_gather kernel on CUDA)."""
+def permute_in(g: Graph, x: torch.Tensor, *, n_out=None) -> torch.Tensor:
+    """x -> permuted space, x[perm] (permute_gather kernel on CUDA),
+    followed by zeros up to n_out when it is given."""
     if g.perm is None:
         return x
-    return permute_gather(x.contiguous(), g.perm)
+    return permute_gather(x.contiguous(), g.perm, n_out=n_out)
 
 
 def permute_out(g: Graph, y_p: torch.Tensor) -> torch.Tensor:
@@ -304,6 +305,10 @@ def _csr_mxv(g: Graph, x, semiring: Semiring):
 
 def mxv(g: Graph, x, *, semiring: Semiring = PLUS_TIMES, mask=None):
     """y = A (+.x) x over the chosen layout (GraphBLAS mxv)."""
+    if x.shape[0] != g.shape[1]:
+        # the permute gathers read a short x as if padded with zeros
+        raise ValueError(f"mxv: x has {x.shape[0]} rows, the graph "
+                         f"{g.shape[1]} columns")
     if g.variant == "dense" and semiring is PLUS_TIMES:
         from g4s_tpu_torch.engine.matmul import dense_matmul
         return _masked(dense_matmul(g.dense, x), mask, semiring)
@@ -319,8 +324,14 @@ def mxv(g: Graph, x, *, semiring: Semiring = PLUS_TIMES, mask=None):
         from g4s_tpu_torch.ops.stream_spmv import spmv_stream
         return _masked(spmv_stream(g.stream, x), mask, semiring)
     if g.variant == "wsell" and semiring is PLUS_TIMES:
-        from g4s_tpu_torch.ops.wsell_spmv import spmv_wsell
-        y = permute_out(g, spmv_wsell(g.wsell, permute_in(g, x)))
+        from g4s_tpu_torch.ops.wsell_spmv import (_chain_pad, spmv_wsell,
+                                                  spmv_wsell_chain)
+        if g.perm is None:
+            return _masked(spmv_wsell(g.wsell, x), mask, semiring)
+        # the gather writes the chain-padded x, zeros included, and the
+        # inverse gather reads the padded y: three launches in all
+        x_pad = permute_in(g, x, n_out=_chain_pad(g.wsell))
+        y = permute_out(g, spmv_wsell_chain(g.wsell, x_pad))
         return _masked(y, mask, semiring)
     if g.variant == "ell":
         ell = g.ell

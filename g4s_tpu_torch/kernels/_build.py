@@ -34,8 +34,8 @@ _INT = ctypes.c_int
 # every pointer and the stream are c_void_p: ctypes would otherwise pass a
 # Python int as a 32-bit int and cut the address
 SIGNATURES = {
-    "g4s_permute_gather_f32": (_P, _P, _P, _I64, _P),
-    "g4s_permute_gather_f64": (_P, _P, _P, _I64, _P),
+    "g4s_permute_gather_f32": (_P, _I64, _P, _I64, _P, _I64, _P),
+    "g4s_permute_gather_f64": (_P, _I64, _P, _I64, _P, _I64, _P),
     "g4s_wsell_spmv_f32": (_P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _INT,
                            _P),
     "g4s_bwell_spmv_f32": (_P, _P, _P, _P, _P, _I64, _INT, _INT, _INT, _P),

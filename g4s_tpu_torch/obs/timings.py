@@ -71,18 +71,21 @@ class Timings:
         return d
 
 
-def device_ms(fn, *, device="cuda", reps: int = 30, warmup: int = 3) -> float:
+def device_ms(fn, *, device="cuda", reps: int = 30, warmup: int = 3,
+              before=None) -> float:
     """Median time of one fn() call in ms, over `reps` back-to-back calls.
 
-    On a CUDA device: CUDA events between the calls. Enqueueing one call
-    can take the host longer than the device takes to run it, and an event
-    pair around a call on an idle device then times the host; so the
+    On a CUDA device: a CUDA event pair around each call. Enqueueing one
+    call can take the host longer than the device takes to run it, and an
+    event pair around a call on an idle device then times the host; so the
     device first sleeps while the host queues every call and event, and if
     the device reached the first event before the host had queued them
     all, the batch is repeated with a longer sleep, and then with fewer
     calls: the device's launch queue holds about a thousand launches, and
-    a host that queues more blocks until the device drains them. On the
-    CPU: the host clock around each call."""
+    a host that queues more blocks until the device drains them.
+    `before`, when given, runs ahead of each call outside its event pair:
+    a cold-cache timing passes an L2 flush there. On the CPU: the host
+    clock around each call."""
     device = resolve_device(device)
     for _ in range(warmup):
         fn()
@@ -96,20 +99,54 @@ def device_ms(fn, *, device="cuda", reps: int = 30, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     cycles = 1 << 26
     for _ in range(8):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+        first = torch.cuda.Event()
+        pairs = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
         torch.cuda._sleep(cycles)
-        ev[0].record()
-        for e in ev[1:]:
+        first.record()
+        for start, end in pairs:
+            if before is not None:
+                before()
+            start.record()
             fn()
-            e.record()
-        drained = ev[0].query()
+            end.record()
+        drained = first.query()
         torch.cuda.synchronize()
         if not drained:
-            return statistics.median(
-                a.elapsed_time(b) for a, b in zip(ev, ev[1:]))
+            return statistics.median(a.elapsed_time(b) for a, b in pairs)
         if cycles < 1 << 30:
             cycles *= 4
         elif reps > 1:
             reps //= 2
     raise RuntimeError("the host could not queue the timed calls ahead of "
                        "the device")
+
+
+def device_kernels(fn, *, tries: int = 5) -> list:
+    """Names of the device activities (kernels, copies, fills) of one
+    fn() call on the card, in order, as torch.profiler records them.
+
+    The tracer can lose activities at the start of a profile, or all of a
+    profile's: a marker kernel (a device sleep) runs first inside the same
+    profile, and it and anything before it are dropped; a profile that
+    holds nothing after the marker is taken again, up to `tries` times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        names = [e.name for e in events]
+        marks = [i for i, n in enumerate(names) if "spin_kernel" in n]
+        names = names[marks[-1] + 1:] if marks else names
+        if names:
+            return names
+    raise RuntimeError(f"torch.profiler recorded no device activity of fn "
+                       f"in {tries} profiles")

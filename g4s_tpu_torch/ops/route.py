@@ -6,7 +6,10 @@ Benes butterflies (two Pallas kernels, `_lane_benes_kernel` and
 `_mid_kernel`, around two XLA transposes) because TPU gathers are serial,
 and routes the network on the host. On Hopper the same function is one
 gather kernel over an int32 sigma (csrc/permute.cu), so a plan is the
-permutation vector itself and no host routing is needed.
+permutation vector itself and no host routing is needed. The gather also
+does the zero padding that the reference's callers do around it: z may be
+shorter than the plan (sigma past its end reads 0) and the output longer
+(n_out), so the SpMV paths pad with no launches of their own.
 
 `PermutePlan` keeps the reference's padding: m is m0 rounded up to a
 multiple of TILE with identity on the tail, and plans above MAX_M raise
@@ -58,20 +61,44 @@ def build_permute_plan(sigma, *, device="cuda") -> PermutePlan:
     return PermutePlan(as_tensor(sigma, np.int32).to(device), m)
 
 
-def _apply_permute_plain(z: torch.Tensor, sigma: torch.Tensor):
-    """Plain PyTorch version of the permute_gather kernel."""
-    return z[sigma.long()]
+def _out_len(sigma: torch.Tensor, n_out) -> int:
+    m = sigma.shape[0]
+    n_out = m if n_out is None else int(n_out)
+    if n_out < m:
+        raise ValueError(f"permute_gather: n_out={n_out} is shorter than "
+                         f"sigma ({m})")
+    return n_out
 
 
-def permute_gather(z: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
-    """out[i] = z[sigma[i]], len(out) == len(sigma).
+def _apply_permute_plain(z: torch.Tensor, sigma: torch.Tensor, *,
+                         n_out=None) -> torch.Tensor:
+    """Plain PyTorch version of the permute_gather kernel: the same
+    function, as torch indexing into zeros."""
+    m, n_out = sigma.shape[0], _out_len(sigma, n_out)
+    out = torch.zeros((n_out,), dtype=z.dtype, device=z.device)
+    if z.shape[0]:
+        idx = sigma.long()
+        # sigma outside [0, len(z)) reads 0, as the kernel's unsigned compare
+        hit = (idx >= 0) & (idx < z.shape[0])
+        out[:m] = torch.where(hit, z[torch.where(hit, idx, 0)], 0)
+    return out
+
+
+def permute_gather(z: torch.Tensor, sigma: torch.Tensor, *,
+                   n_out=None) -> torch.Tensor:
+    """out[i] = z[sigma[i]] for i < len(sigma), with the zero padding of
+    both sides fused in: sigma[i] outside [0, len(z)) reads 0 (what a z
+    padded with zeros gives), and out[i] = 0 for len(sigma) <= i < n_out.
+    n_out defaults to len(sigma) and may not be shorter.
 
     A CUDA tensor goes through the permute_gather kernel (f32 or f64 z,
-    int32 sigma with values in [0, len(z)), both contiguous and 1-D); a CPU
-    tensor through its plain PyTorch version. Anything else raises."""
+    int32 sigma, both contiguous and 1-D); a CPU tensor through its plain
+    PyTorch version. Anything else raises. Sigma is not range-checked
+    here: the plans are, where they are built."""
     global LAUNCHES
+    n_out = _out_len(sigma, n_out)
     if z.device.type == "cpu":
-        return _apply_permute_plain(z, sigma)
+        return _apply_permute_plain(z, sigma, n_out=n_out)
     if not z.is_cuda:
         raise ValueError(f"permute_gather: unsupported device {z.device}")
     if z.dtype not in (torch.float32, torch.float64):
@@ -83,16 +110,15 @@ def permute_gather(z: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
             or not sigma.is_contiguous():
         raise ValueError("permute_gather: z and sigma must be contiguous "
                          "1-D tensors")
-    m = sigma.shape[0]
-    out = torch.empty((m,), dtype=z.dtype, device=z.device)
-    if m == 0:
+    out = torch.empty((n_out,), dtype=z.dtype, device=z.device)
+    if n_out == 0:
         return out
     lib = _build.load()
     name = ("g4s_permute_gather_f32" if z.dtype == torch.float32
             else "g4s_permute_gather_f64")
     with torch.cuda.device(z.device):
-        rc = getattr(lib, name)(z.data_ptr(), sigma.data_ptr(),
-                                out.data_ptr(), m,
+        rc = getattr(lib, name)(z.data_ptr(), z.shape[0], sigma.data_ptr(),
+                                sigma.shape[0], out.data_ptr(), n_out,
                                 torch.cuda.current_stream().cuda_stream)
     LAUNCHES += 1
     _build.check(rc, name)

@@ -13,8 +13,9 @@ The schedule is the reference's, built by the same host code:
              (`rowplan`) restores the original row order.
 
 All three permutations run through the permute_gather kernel
-(ops/route.py). Heavy hub columns and rows leave the stream and run as
-dense `torch.matmul` products plus an `index_add_`.
+(ops/route.py), which also reads the unpadded x and y_sorted as if they
+were padded with zeros. Heavy hub columns and rows leave the stream and
+run as dense `torch.matmul` products plus an `index_add_`.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 
 from g4s_tpu_torch.ops.route import (MAX_M, TILE, PermutePlan, apply_permute,
-                                     build_permute_plan)
+                                     build_permute_plan, permute_gather)
 from g4s_tpu_torch.sparse.containers import as_tensor, resolve_device
 
 
@@ -267,16 +268,16 @@ def _expand(plan: StreamPlan, xc: torch.Tensor) -> torch.Tensor:
 
 def spmv_stream(plan: StreamPlan, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x through the streaming schedule."""
-    xpad = torch.zeros((plan.nc_pad,), dtype=x.dtype, device=x.device)
-    xpad[: plan.n_cols] = x
-    xc = apply_permute(plan.xplan, xpad)
+    if tuple(x.shape) != (plan.n_cols,):
+        raise ValueError(f"spmv_stream: x has shape {tuple(x.shape)}, the "
+                         f"plan expects ({plan.n_cols},)")
+    # x and y_sorted go to their gathers unpadded: plan slots past their
+    # length read 0, as the reference's zero-padded copies give
+    xc = permute_gather(x.contiguous(), plan.xplan.sigma)
     t = apply_permute(plan.route2, _expand(plan, xc))
     y_sorted = torch.cat([t[o: o + nr * w].view(w, nr).sum(dim=0)
                           for nr, w, o in plan.slices])
-    ypad = torch.zeros((plan.nr_pad,), dtype=y_sorted.dtype,
-                       device=y_sorted.device)
-    ypad[: plan.n_rows] = y_sorted
-    y = apply_permute(plan.rowplan, ypad)[: plan.n_rows]
+    y = permute_gather(y_sorted, plan.rowplan.sigma[: plan.n_rows])
     if plan.hub_cols is not None:
         y = y + plan.hub_dense_c.to(y.dtype) \
             @ x[plan.hub_cols.long()].to(y.dtype)

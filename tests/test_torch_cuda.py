@@ -38,6 +38,27 @@ def test_permute_gather_bit_exact(cuda, dtype):
     assert torch.equal(got, route._apply_permute_plain(z, sigma))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rem,off_s,off_z", [(0, 0, 0), (1, 1, 1), (3, 2, 0),
+                                             (5, 3, 1), (7, 1, 3)])
+def test_permute_gather_fused_bit_exact(cuda, dtype, rem, off_s, off_z):
+    """Lengths off a multiple of 8, sigma reaching past len(z), n_out past
+    len(sigma), sigma and z as views at offsets into their allocations."""
+    rng = np.random.default_rng(rem)
+    m = 8 * 5000 + rem
+    sigma = torch.from_numpy(rng.permutation(m + off_s).astype(np.int32)) \
+        .to(cuda)[off_s:]
+    z = torch.from_numpy(rng.standard_normal(m - 100 + off_z)) \
+        .to(cuda, dtype)[off_z:]
+    n_out = m + 11
+    want = route._apply_permute_plain(z, sigma, n_out=n_out)
+    assert not want[m:].any() and int((want[:m] == 0).sum()) >= 100
+    before = route.LAUNCHES
+    got = route.permute_gather(z, sigma, n_out=n_out)
+    assert route.LAUNCHES == before + 1
+    assert got.shape == (n_out,) and torch.equal(got, want)
+
+
 def test_permute_gather_rejects_bad_inputs(cuda):
     z = torch.zeros(10, device=cuda)
     with pytest.raises(TypeError):
@@ -83,6 +104,32 @@ def test_stencil_dispatches_to_wsell(cuda):
     x = rng.standard_normal(a.shape[0]).astype(np.float32)
     y = mxv(g, torch.from_numpy(x).to(cuda)).cpu().numpy()
     np.testing.assert_allclose(y, a.astype(np.float64) @ x, atol=1e-4)
+
+
+def test_stencil_mxv_runs_three_kernels(cuda):
+    """mxv on a renumbered stencil: the permute kernel twice (the first
+    writes the chain-padded x itself), WSELL once, and no separate zero
+    fill or pad copy."""
+    from g4s_tpu_torch.obs.timings import device_kernels
+    nx = 24
+    rng = np.random.default_rng(4)
+    t_ = sp.diags([1.0, 1.0, 1.0], [-1, 0, 1], (nx, nx))
+    e_ = sp.eye(nx)
+    a = (sp.kron(sp.kron(e_, e_), t_) + sp.kron(sp.kron(e_, t_), e_)
+         + sp.kron(t_, sp.kron(e_, e_))).tocsr().astype(np.float32)
+    pp = rng.permutation(nx ** 3)
+    a = a[pp][:, pp].tocsr()
+    g = build_graph(CSR.from_scipy(a), device=cuda)
+    assert g.variant == "wsell" and g.perm is not None
+    x = torch.from_numpy(rng.standard_normal(nx ** 3)
+                         .astype(np.float32)).to(cuda)
+    mxv(g, x)
+    before = (route.LAUNCHES, wsell_spmv.LAUNCHES)
+    names = device_kernels(lambda: mxv(g, x))
+    assert (route.LAUNCHES - before[0], wsell_spmv.LAUNCHES - before[1]) \
+        == (2, 1)
+    assert len(names) == 3, names
+    assert sum("permute_gather" in k for k in names) == 2, names
 
 
 @pytest.mark.parametrize("mode,offs", [

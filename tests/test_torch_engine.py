@@ -433,6 +433,20 @@ def test_slice_cuda_rules_on_cpu(case):
     np.testing.assert_allclose(y, a.astype(np.float64) @ x, atol=1e-4)
 
 
+@pytest.mark.parametrize("case", ["stencil_wsell", "rcm_dia", "stream"])
+def test_slice_mxv_rejects_x_of_another_length(case):
+    """The fused permutes read x past its end as 0; mxv checks the length
+    on the host instead."""
+    a, kw = {"stencil_wsell": (_stencil(12), {}),
+             "rcm_dia": (_shuffled_band(1024), {}),
+             "stream": (_random_unstructured(), {"reorder": False})}[case]
+    g = _cuda_rules_graph(a, **kw)
+    assert g.variant == case.split("_")[-1]
+    for n in (a.shape[1] - 1, a.shape[1] + 1):
+        with pytest.raises(ValueError):
+            P.mxv(g, torch.zeros(n))
+
+
 def test_build_graph_defaults_to_cuda():
     """Entry points run on the card unless the caller asks for the CPU:
     with no card, build_graph(a) raises instead of running on the CPU."""

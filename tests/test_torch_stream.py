@@ -130,6 +130,16 @@ def test_without_hub_split(rng):
                                a @ x, rtol=2e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("shape", [(1199,), (1201,), (1200, 1)])
+def test_x_of_another_shape_raises(rng, shape):
+    """The gathers read x past its end as 0, so the length is checked on
+    the host: a short x would otherwise be a silent wrong answer."""
+    p = port.build_stream_plan(_random_csr(rng, 1000, 1200, 6000),
+                               device="cpu")
+    with pytest.raises(ValueError):
+        port.spmv_stream(p, torch.zeros(shape))
+
+
 def test_matches_jax_device_schedule(rng, monkeypatch):
     """Against the reference's device executor (Pallas permutes in
     interpret mode), with hub columns and rows present."""
