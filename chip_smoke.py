@@ -43,9 +43,28 @@ Run from the root of a checkout: `python3 chip_smoke.py`. It
      the ESC engine, give C's indptr/indices equal to scipy's and values
      within a relative 1e-5 of scipy f64; plan and numeric times beside
      the wall time of torch.sparse.mm (cuSPARSE SpGEMM, which waits on the
-     device itself; a yardstick only); then reg_mm on
-     two small pairs, every strategy PASS;
-  8. the mv suite: the four dense BLAS2 products at dim 4096.
+     device itself; a yardstick only); the same for the corpus's
+     real-structure member, the CitcomS Cookbook2 velocity stiffness K
+     (29,403 rows, assembled by the port's model in f32), whose K x also
+     runs through build_graph + mxv against scipy f64 beside cuSPARSE's
+     SpMV; then reg_mm on two small pairs, every strategy PASS;
+  8. the mv suite: the four dense BLAS2 products at dim 4096;
+  9. CitcomS regional Cookbook2 (g4s_tpu_torch/models/citcoms/
+     cookbook2.cfg, 33x33x9 nodes, 8192 elements): in f64 the initial
+     Stokes solve and 10 steps, each step's vrms, nu_top, nu_bot, dt and
+     T_mean within a relative 5e-5 of
+     benchmarks/cookbook2_blessed_f64.json (how far rounding alone moves
+     that trajectory; whether it stayed within 1e-6 is printed), its
+     Uzawa/CG counts printed; then one f64 step from the card's state
+     after its initial solve with every solver loop run to a fixed cap,
+     on the card against the host CPU, within 1e-10; in f32 the initial
+     solve, one warm-up step and 5 timed steps, vrms, nu_top and dt within
+     1e-4 of the blessed values, with wall s/step, inner CG, host syncs,
+     device kernels and device-busy ms (torch.profiler) per step; the
+     stencil matvec's device time beside its bound and the
+     element-by-element form's, the two forms within 1e-5 (f32) and 1e-12
+     (f64) of each other. No hand-written kernel lies on this path (its
+     launch counts are printed, 0).
 
 Device times are medians per call between back-to-back calls queued
 behind a device sleep (g4s_tpu_torch.obs.timings.device_ms); "cold" times
@@ -59,6 +78,7 @@ line) without CUDA or outside the repo.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import os
 import re
@@ -69,6 +89,22 @@ import time
 REL_TOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory, published
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+# Cookbook2 against the blessed f64 trajectory, which the reference computed
+# in f64 on the CPU. Rounding alone moves that trajectory: the initial
+# solve's inner CG amplifies a difference of one rounding about 2.6-fold per
+# iteration, and where a later step's Uzawa test then falls the other way,
+# vrms moves by about 2e-5. The reference itself, started from a temperature
+# changed by 1e-15, leaves the file by more than 1e-6 in 2 of 10 runs and by
+# up to 1.9e-5 (tests/citcoms_rounding_spread.py). So the f64 run is held to
+# COOKBOOK2_F64_TOL, prints whether it stayed within 1e-6, and f64
+# arithmetic on the card is checked apart from the file: one step with every
+# solver loop run to a fixed cap, on the card against the host CPU from one
+# state, within COOKBOOK2_FIXED_TOL (a 1e-15 change of the state moves that
+# step by about 1e-13, f32 arithmetic by about 6e-6).
+COOKBOOK2_F64_TOL = 5e-5
+COOKBOOK2_F64_GOAL = 1e-6
+COOKBOOK2_F32_TOL = 1e-4
+COOKBOOK2_FIXED_TOL = 1e-10
 
 
 def _say(phase: str, **kw) -> None:
@@ -285,6 +321,72 @@ def _erdos_renyi(n: int, avg_deg: int, seed: int):
         shape=(n, n)).tocsr()
 
 
+def _fem_stiffness(model):
+    """The assembled CitcomS velocity stiffness K of `model` at its initial
+    temperature, f32 CSR (bench.py's `_fem_stiffness_matrix`, the mm
+    corpus's real-structure member): 3 dofs per node, the 24x24 element
+    blocks scattered through the incidence."""
+    import numpy as np
+    import scipy.sparse as sp
+    elt_k = model._build_ops(model.init_state().T).elt_k.cpu().numpy()
+    ien = model.mesh.ien.astype(np.int64)
+    dofs = (ien[:, :, None] * 3 + np.arange(3)).reshape(-1, 24)
+    rows = np.repeat(dofs, 24, axis=1).reshape(-1)
+    cols = np.tile(dofs, (1, 24)).reshape(-1)
+    n3 = model.mesh.nno * 3
+    k = sp.coo_matrix((elt_k.reshape(-1), (rows, cols)),
+                      shape=(n3, n3)).tocsr()
+    k.sum_duplicates()
+    k.eliminate_zeros()
+    return k.astype(np.float32)
+
+
+def _cookbook2(model, steps: int, blessed: dict, keys, tol: float,
+               after: int = 0):
+    """`steps` timed steps of `model` after its initial solve and `after`
+    untimed steps; returns the state after the initial solve, the last
+    state, per-step diagnostics and the largest relative error of each of
+    `keys` against the blessed f64 trajectory over every step taken, which
+    must stay within `tol`. Observables are read after the timed loop."""
+    import torch
+    from g4s_tpu_torch.models.citcoms import solvers
+    from g4s_tpu_torch.models.citcoms.observables import (rms_velocity,
+                                                          surface_heat_flux)
+    s0, _ = model.initial_solve(model.init_state())
+    s, kept = s0, []
+    for _ in range(after):
+        s, d = model.step(s)
+        kept.append((s, d))
+    torch.cuda.synchronize()
+    solvers.HOST_SYNCS = 0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        s, d = model.step(s)
+        kept.append((s, d))
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / steps
+    syncs = solvers.HOST_SYNCS / steps
+    err = {k: 0.0 for k in keys}
+    counts, per_step = [], []
+    for i, (s_i, d_i) in enumerate(kept):
+        got = {"vrms": rms_velocity(model, s_i.V),
+               "nu_top": surface_heat_flux(model, s_i.T, top=True)[1],
+               "nu_bot": surface_heat_flux(model, s_i.T, top=False)[1],
+               "dt": d_i.dt, "T_mean": s_i.T.mean()}
+        e_i = {k: abs(float(got[k]) - blessed[k][i]) / abs(blessed[k][i])
+               for k in keys}
+        err = {k: max(err[k], e_i[k]) for k in keys}
+        per_step.append(f"{max(e_i.values()):.2g}")
+        counts.append(f"{d_i.uzawa_iterations}/{d_i.inner_iterations}")
+    _check(all(v <= tol for v in err.values()),
+           f"Cookbook2 {model.dtype} against the blessed trajectory: {err} "
+           f"(Uzawa/CG per step {counts})")
+    timed = [d for _, d in kept[after:]]
+    return {"s0": s0, "s": s, "wall_s": wall, "host_syncs": syncs, "err": err,
+            "counts": counts, "per_step_err": per_step,
+            "inner": sum(d.inner_iterations for d in timed) / steps}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -304,11 +406,21 @@ def main() -> int:
     from g4s_tpu_torch.drivers import mv_bench, reg_mm
     from g4s_tpu_torch.engine import build_graph, dispatch, mxv
     from g4s_tpu_torch.kernels import _build
-    from g4s_tpu_torch.obs.timings import device_kernels, device_ms
+    from g4s_tpu_torch.models.citcoms import (CitcomModel, assembly,
+                                              load_config, nodal,
+                                              state_from_numpy)
+    from g4s_tpu_torch.obs.timings import (device_activities, device_kernels,
+                                           device_ms)
     from g4s_tpu_torch.ops import bwell_spmv, route, spgemm_esc, wsell_spmv
     from g4s_tpu_torch.sparse import CSR, dense_to_csr
 
     dev = torch.device("cuda")
+    here = os.path.dirname(os.path.abspath(__file__))
+    cookbook2 = load_config(os.path.join(
+        here, "g4s_tpu_torch", "models", "citcoms", "cookbook2.cfg"))
+    with open(os.path.join(here, "benchmarks",
+                           "cookbook2_blessed_f64.json")) as f:
+        blessed = json.load(f)["trajectory"]
 
     def ms_of(fn, reps: int = 20, before=None) -> float:
         return device_ms(fn, device=dev, reps=reps, before=before)
@@ -715,12 +827,19 @@ def main() -> int:
         built.append((plan, time.perf_counter() - t0))
         return plan
 
+    t0 = time.perf_counter()
+    m32 = CitcomModel(cookbook2, dtype=torch.float32, device=dev)
+    model_s = time.perf_counter() - t0
+    fem_k = _fem_stiffness(m32)
+    _say("7-fem-k", case="fem_k_citcoms_33", n=fem_k.shape[0],
+         nnz=fem_k.nnz, model_build_s=f"{model_s:.2f}")
     spgemm_esc.esc_plan = recording_esc_plan    # mxm looks it up per call
     try:
         for name, a in (("er_32768_16", _erdos_renyi(1 << 15, 16, seed=42)),
                         ("rmat_32768", _rmat_like(1 << 15, 1 << 19)),
                         ("er_131072_16", _erdos_renyi(1 << 17, 16,
-                                                      seed=43))):
+                                                      seed=43)),
+                        ("fem_k_citcoms_33", fem_k)):
             A_c = CSR.from_scipy(a)
             built.clear()
             t0 = time.perf_counter()
@@ -769,6 +888,31 @@ def main() -> int:
     finally:
         spgemm_esc.esc_plan = esc_plan
 
+    # K x through the engine's SpMV path, and cuSPARSE's SpMV on the same K
+    # (the library yardstick of phase 9's stencil matvec)
+    g7 = build_graph(CSR.from_scipy(fem_k), device=dev)
+    xk_np = np.random.default_rng(9).standard_normal(fem_k.shape[0]) \
+        .astype(np.float32)
+    xk = torch.from_numpy(xk_np).to(dev)
+    route.LAUNCHES = wsell_spmv.LAUNCHES = 0
+    yk = mxv(g7, xk)
+    torch.cuda.synchronize()
+    k_launches = {"permute_gather": route.LAUNCHES,
+                  "wsell_spmv": wsell_spmv.LAUNCHES}
+    rel = _rel_err(yk.cpu(), fem_k.astype(np.float64)
+                   @ xk_np.astype(np.float64))
+    _check(rel <= REL_TOL, f"fem K mxv vs scipy f64: rel {rel}")
+    fem_t = _csr_tensor(fem_k, dev)
+    fem_cusparse_ms = ms_of(lambda: torch.mv(fem_t, xk))
+    _say("7-fem-mxv", n=fem_k.shape[0], nnz=fem_k.nnz, variant=g7.variant,
+         perm=g7.perm is not None,
+         launches=json.dumps(k_launches).replace(" ", ""),
+         device_kernels=_kernel_names(device_kernels(lambda: mxv(g7, xk))),
+         rel_err_vs_scipy_f64=f"{rel:.3g}",
+         mxv_ms=f"{ms_of(lambda: mxv(g7, xk)):.4f}",
+         cusparse_ms=f"{fem_cusparse_ms:.4f}")
+    del g7, fem_t
+
     rs = np.random.default_rng(7)
     M = (rs.random((200, 200)) < 0.06) * rs.standard_normal((200, 200))
     pat = sp.random(24, 24, 0.2, random_state=np.random.RandomState(5),
@@ -787,6 +931,97 @@ def main() -> int:
     # ---- 8: the mv suite: dense BLAS2 at dim 4096 -----------------------
     mv = mv_bench.run(4096, verbose=False, device=dev)
     _say("8-mv", dim=4096, **{k: f"{v:.4f}" for k, v in mv.items()})
+
+    # ---- 9: CitcomS regional Cookbook2 ---------------------------------
+    t0 = time.perf_counter()
+    m64 = CitcomModel(cookbook2, dtype=torch.float64, device=dev)
+    model_s = time.perf_counter() - t0
+    launch_mods = (route, wsell_spmv, bwell_spmv)
+    for mod in launch_mods:
+        mod.LAUNCHES = 0
+    r64 = _cookbook2(m64, 10, blessed,
+                     ("vrms", "nu_top", "nu_bot", "dt", "T_mean"),
+                     COOKBOOK2_F64_TOL)
+    _say("9-cookbook2-f64", grid="33x33x9", nel=m64.mesh.nel, steps=10,
+         model_build_s=f"{model_s:.2f}", s_per_step=f"{r64['wall_s']:.4f}",
+         inner_cg_per_step=r64["inner"],
+         host_syncs_per_step=r64["host_syncs"],
+         uzawa_cg_per_step=",".join(r64["counts"]),
+         max_rel_err=json.dumps({k: f"{v:.3g}" for k, v in
+                                 r64["err"].items()}).replace(" ", ""),
+         per_step_max_rel_err=",".join(r64["per_step_err"]),
+         within_1e_6=max(r64["err"].values()) <= COOKBOOK2_F64_GOAL)
+    # f64 on the card against f64 on the host CPU: one step from the card's
+    # state after its initial solve, every solver loop run to its cap
+    # (accuracy 0: 3 Uzawa iterations of 60 CG each), so no stopping test
+    # can part the two
+    fixed = dataclasses.replace(cookbook2, accuracy=0.0, piterations=3,
+                                vlowstep=60)
+    sg, dg = CitcomModel(fixed, device=dev).step(r64["s0"])
+    m_host = CitcomModel(fixed, device="cpu")
+    s0 = r64["s0"]
+    sh, dh = m_host.step(state_from_numpy(m_host, dict(
+        {k: getattr(s0, k).cpu() for k in ("T", "Tdot", "V", "P", "time",
+                                           "dt")}, step=s0.step)))
+    _check((dg.uzawa_iterations, dg.inner_iterations)
+           == (dh.uzawa_iterations, dh.inner_iterations) == (3, 240),
+           f"fixed-count step counts {dg} {dh}")
+    fixed_err = {k: _rel_err(getattr(sg, k).cpu(), getattr(sh, k))
+                 for k in ("T", "V", "P", "dt")}
+    _check(all(v <= COOKBOOK2_FIXED_TOL for v in fixed_err.values()),
+           f"f64 fixed-count step, card against host CPU: {fixed_err}")
+    _say("9-cookbook2-f64-card-vs-host", uzawa_cg="3/240",
+         rel_err=json.dumps({k: f"{v:.3g}" for k, v in
+                             fixed_err.items()}).replace(" ", ""),
+         tol=COOKBOOK2_FIXED_TOL)
+    del s0, sg, sh, m_host
+    r32 = _cookbook2(m32, 5, blessed, ("vrms", "nu_top", "dt"),
+                     COOKBOOK2_F32_TOL, after=1)
+    torch.cuda.synchronize()
+    cb_launches = sum(mod.LAUNCHES for mod in launch_mods)
+    # one more step under torch.profiler: its device activities and the
+    # device time they add up to, against the step's wall time above
+    step_acts = device_activities(lambda: m32.step(r32["s"]))
+    busy_ms = sum(us for _, us in step_acts) / 1e3
+    _say("9-cookbook2-f32", warmup_steps=1, timed_steps=5,
+         s_per_step=f"{r32['wall_s']:.4f}", inner_cg_per_step=r32["inner"],
+         host_syncs_per_step=r32["host_syncs"],
+         device_kernels_per_step=len(step_acts),
+         device_busy_ms_per_step=f"{busy_ms:.2f}",
+         device_idle_share=f"{max(0.0, 1 - busy_ms / 1e3 / r32['wall_s']):.3f}",
+         uzawa_cg_per_step=",".join(r32["counts"]),
+         max_rel_err=json.dumps({k: f"{v:.3g}" for k, v in
+                                 r32["err"].items()}).replace(" ", ""),
+         per_step_max_rel_err=",".join(r32["per_step_err"]),
+         hand_kernel_launches_f64_f32=cb_launches)
+    for name, m in (("f32", m32), ("f64", m64)):
+        s_ = r32["s"] if name == "f32" else r64["s"]
+        ops = m._build_ops(s_.T, s_.V)
+        st = nodal.build_stencil(ops.elt_k, m.stencil_plan)
+        u = torch.from_numpy(np.random.default_rng(3).standard_normal(
+            (m.mesh.nno, 3))).to(dev, m.dtype)
+        stencil = lambda: nodal.nodal_matvec(st, u, m.vbc_mask)
+        eltk = lambda: assembly.assemble_del2_u(ops, u)
+        # the two forms sum the same products in other orders
+        tol = REL_TOL if name == "f32" else 1e-12
+        rel = _rel_err(stencil().cpu(), eltk().cpu())
+        _check(rel <= tol, f"stencil and element-by-element K u differ "
+                           f"({name}): rel {rel}")
+        size = u.element_size()
+        # W, u and the mask read, K u written; one FMA per stencil entry.
+        # The (nno, 27) int64 neighbour index the port reads is left out: a
+        # 27-point stencil on a regular grid needs none
+        b_ms, b_by = _bound(st.W.numel() * size + 2 * u.numel() * size
+                            + m.vbc_mask.numel(), 2.0 * st.W.numel())
+        _say("9-stencil-matvec", dtype=name, nno=m.mesh.nno,
+             device_ms=f"{ms_of(stencil):.4f}", bound_ms=f"{b_ms:.4f}",
+             bound_by=b_by, rel_err_vs_eltk=f"{rel:.3g}",
+             index_mb=f"{st.nbr.numel() * 8 / 1e6:.2f}",
+             device_kernels_per_call=len(device_kernels(
+                 lambda: [stencil() for _ in range(10)])) / 10,
+             eltk_device_ms=f"{ms_of(eltk):.4f}",
+             cusparse_k_f32_ms=f"{fem_cusparse_ms:.4f}")
+    del m32, m64
 
     sources = {"permute_gather": "g4s_tpu_torch/csrc/permute.cu",
                "wsell_spmv": "g4s_tpu_torch/csrc/wsell_spmv.cu",

@@ -124,7 +124,13 @@ def device_ms(fn, *, device="cuda", reps: int = 30, warmup: int = 3,
 
 def device_kernels(fn, *, tries: int = 5) -> list:
     """Names of the device activities (kernels, copies, fills) of one
-    fn() call on the card, in order, as torch.profiler records them.
+    fn() call on the card, in order, as torch.profiler records them."""
+    return [name for name, _ in device_activities(fn, tries=tries)]
+
+
+def device_activities(fn, *, tries: int = 5) -> list:
+    """(name, device µs) of each device activity (kernels, copies, fills)
+    of one fn() call on the card, in order, as torch.profiler records them.
 
     The tracer can lose activities at the start of a profile, or all of a
     profile's: a marker kernel (a device sleep) runs first inside the same
@@ -143,10 +149,9 @@ def device_kernels(fn, *, tries: int = 5) -> list:
         events = sorted((e for e in prof.events()
                          if e.device_type == DeviceType.CUDA),
                         key=lambda e: e.time_range.start)
-        names = [e.name for e in events]
-        marks = [i for i, n in enumerate(names) if "spin_kernel" in n]
-        names = names[marks[-1] + 1:] if marks else names
-        if names:
-            return names
+        marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+        events = events[marks[-1] + 1:] if marks else events
+        if events:
+            return [(e.name, e.time_range.elapsed_us()) for e in events]
     raise RuntimeError(f"torch.profiler recorded no device activity of fn "
                        f"in {tries} profiles")
