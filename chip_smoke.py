@@ -65,6 +65,22 @@ Run from the root of a checkout: `python3 chip_smoke.py`. It
      element-by-element form's, the two forms within 1e-5 (f32) and 1e-12
      (f64) of each other. No hand-written kernel lies on this path (its
      launch counts are printed, 0).
+ 10. DeePMD se_e2_a water at the flagship width (WATER_SPEC: rcut 6,
+     sel 46/92, embedding 25-50-100, axis 16, fitting 240-240-240;
+     __graft_entry__.py's 192-atom frame, random weights from a seeded CPU
+     generator): in f64, E/F/W on the card against the host CPU within
+     1e-10, DeepPot through a frozen file and a batch of 8 frames against
+     8 single calls likewise, 20 NVT steps (velocities at 330 K from seed
+     23456789) within 1e-9 on x and v, and the compressed model (f64
+     tables at stride 0.005 over this frame's normalised s(r)) within
+     1e-10 on E and F, its error against the exact model printed; in f32,
+     device ms, host wall ms, device kernels, device-busy ms and idle
+     share per single-frame eval, per forward pass alone (E, no grad), per
+     8-frame batch, per compressed eval and per DeepPot.eval from host
+     arrays, MD ms/step over 100 steps, and the eval's dense FLOPs and
+     their bound at the f32 rate. No Pallas kernel lies on this path in
+     the reference, so no hand kernel does here (launch counts printed,
+     0).
 
 Device times are medians per call between back-to-back calls queued
 behind a device sleep (g4s_tpu_torch.obs.timings.device_ms); "cold" times
@@ -105,6 +121,14 @@ COOKBOOK2_F64_TOL = 5e-5
 COOKBOOK2_F64_GOAL = 1e-6
 COOKBOOK2_F32_TOL = 1e-4
 COOKBOOK2_FIXED_TOL = 1e-10
+# DeePMD water (phase 10): f64 E/F/W, compressed E/F and the frozen and
+# batched DeepPot paths, card against host CPU, relative to each one's
+# largest magnitude; 20 NVT steps compound the force differences, so x and
+# v are held a decade looser; f32 on the card against f64 (the CPU parity
+# tests hold f32 to 1e-4 of the reference's f64 likewise)
+DEEPMD_F64_TOL = 1e-10
+DEEPMD_MD_TOL = 1e-9
+DEEPMD_F32_TOL = 1e-4
 
 
 def _say(phase: str, **kw) -> None:
@@ -385,6 +409,251 @@ def _cookbook2(model, steps: int, blessed: dict, keys, tol: float,
     return {"s0": s0, "s": s, "wall_s": wall, "host_syncs": syncs, "err": err,
             "counts": counts, "per_step_err": per_step,
             "inner": sum(d.inner_iterations for d in timed) / steps}
+
+
+def _deepmd_flops(spec, n_atoms: int) -> dict:
+    """Floating-point operations of one E+F+W eval of the se_e2_a model as
+    the port computes it: the dense products only (the embedding and
+    fitting layers' matmuls and the two descriptor contractions, 2 per
+    multiply-add), for every center type on every atom as the reference
+    does. The backward pass to the coordinates and the strain needs no
+    weight gradients: a layer's product costs its forward's once more,
+    the contractions (both operands depend on the coordinates) twice."""
+    nt, nnei = spec.descriptor.ntypes, spec.descriptor.nnei
+    m1, m2 = spec.m1, spec.axis_neuron
+    dims = [1] + list(spec.embed_neurons)
+    embed = nt * n_atoms * nnei * 2 * sum(a * b for a, b in
+                                          zip(dims, dims[1:]))
+    contract = nt * n_atoms * (nnei * 4 * m1 + 4 * m1 * m2) * 2
+    dims = [spec.descriptor_dim] + list(spec.fit_neurons) + [1]
+    fit = nt * n_atoms * 2 * sum(a * b for a, b in zip(dims, dims[1:]))
+    total = 2 * (embed + fit) + 3 * contract
+    return {"forward": embed + contract + fit, "total": total,
+            # each atom's own center type only: what the reference's
+            # compute-both-then-select pattern spends twice
+            "own_type_only": total // nt}
+
+
+def _deepmd_water(dev) -> None:
+    """Phase 10: the DeePMD se_e2_a serving path at the flagship water width
+    (WATER_SPEC; __graft_entry__.py's 192-atom frame: 64 O, 128 H, box
+    12.444661 A, coordinates from default_rng(0); weights from a seeded
+    CPU torch.Generator moved to the card). f64 checks, card against host
+    CPU, each within its tolerance relative to the largest magnitude; then
+    f32 timings."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from g4s_tpu_torch.models.deepmd import (WATER_SPEC, DeepPot,
+                                             energy_force_virial, freeze,
+                                             init_params, total_energy)
+    from g4s_tpu_torch.models.deepmd.compress import (
+        compress_model, compressed_to, energy_force_compressed)
+    from g4s_tpu_torch.models.deepmd.descriptor import (env_mat,
+                                                        normalize_env_mat)
+    from g4s_tpu_torch.models.deepmd.md import NVTIntegrator, init_velocities
+    from g4s_tpu_torch.models.deepmd.model import map_tree, params_to
+    from g4s_tpu_torch.obs.timings import device_activities, device_ms
+    from g4s_tpu_torch.ops import bwell_spmv, route, wsell_spmv
+
+    cpu = torch.device("cpu")
+    spec = WATER_SPEC
+    rng = np.random.default_rng(0)
+    n = 192
+    types_np = np.concatenate([np.zeros(64, np.int64), np.ones(128, np.int64)])
+    L = 12.444661
+    coord_np = rng.uniform(0, L, size=(n, 3))
+    box_np = np.eye(3) * L
+    params = init_params(torch.Generator().manual_seed(1), spec)
+    launch_mods = (route, wsell_spmv, bwell_spmv)
+    for mod in launch_mods:
+        mod.LAUNCHES = 0
+
+    def on(device, dtype=torch.float64):
+        return (params_to(params, device=device, dtype=dtype),
+                torch.as_tensor(coord_np, dtype=dtype, device=device),
+                torch.as_tensor(box_np, dtype=dtype, device=device),
+                torch.as_tensor(types_np, device=device))
+
+    def rel(got, want) -> float:
+        return _rel_err(got.detach().cpu().double(),
+                        want.detach().cpu().double())
+
+    # ---- f64: the card against the host CPU ----
+    pg, cg, bg, tg = on(dev)
+    ph, ch, bh, th = on(cpu)
+    t0 = time.perf_counter()
+    want = energy_force_virial(ph, spec, ch, bh, th)
+    host_s = time.perf_counter() - t0
+    got = energy_force_virial(pg, spec, cg, bg, tg)
+    efv_err = {k: rel(g, w) for k, g, w in zip("EFW", got, want)}
+    _check(all(v <= DEEPMD_F64_TOL for v in efv_err.values()),
+           f"DeePMD E/F/W f64, card against host CPU: {efv_err}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "frozen_model.npz")
+        freeze(params, spec, path, type_map=["O", "H"])
+        pot = DeepPot(path, device=dev)
+        pot32 = DeepPot(path, device=dev, dtype=torch.float32)
+    frozen = pot.eval(coord_np, box_np, types_np)
+    frozen_err = {k: rel(g, w) for k, g, w in zip("EFW", frozen, got)}
+    _check(all(v <= DEEPMD_F64_TOL for v in frozen_err.values()),
+           f"DeepPot through a frozen file against energy_force_virial: "
+           f"{frozen_err}")
+    nb = 8
+    cb_np = coord_np[None] + np.random.default_rng(1).normal(
+        scale=0.05, size=(nb, n, 3))
+    bb_np = np.repeat(box_np[None], nb, axis=0)
+    batch = pot.eval(cb_np, bb_np, types_np)
+    batch_err = 0.0
+    for i in range(nb):
+        one = pot.eval(cb_np[i], box_np, types_np)
+        batch_err = max([batch_err] + [rel(b[i], o) for b, o in
+                                       zip(batch, one)])
+    _check(batch_err <= DEEPMD_F64_TOL,
+           f"DeepPot batch of {nb} against {nb} single calls: {batch_err}")
+    _say("10-deepmd-f64", atoms=n, spec="WATER_SPEC",
+         e=f"{float(got[0]):.10g}",
+         rel_err_card_vs_host=json.dumps(
+             {k: f"{v:.3g}" for k, v in efv_err.items()}).replace(" ", ""),
+         frozen_deeppot_rel_err=f"{max(frozen_err.values()):.3g}",
+         batch8_vs_single_rel_err=f"{batch_err:.3g}", tol=DEEPMD_F64_TOL,
+         host_cpu_eval_s=f"{host_s:.3f}")
+
+    # ---- 20 NVT steps, f64, the card against the host CPU ----
+    masses = np.where(types_np == 0, 16.0, 2.0)
+    v0 = init_velocities(np.random.default_rng(23456789), masses, 330.0)
+    finals = []
+    for p_, b_, t_, device in ((pg, bg, tg, dev), (ph, bh, th, cpu)):
+        integ = NVTIntegrator(
+            lambda x, p_=p_, b_=b_, t_=t_: energy_force_virial(
+                p_, spec, x, b_, t_)[1], masses, box_np, device=device)
+        state, _ = integ.run(coord_np, v0, 20, verbose=False)
+        finals.append(state)
+    md_err = {k: rel(getattr(finals[0], k), getattr(finals[1], k))
+              for k in ("x", "v")}
+    _check(all(v <= DEEPMD_MD_TOL for v in md_err.values()),
+           f"20 NVT steps f64, card against host CPU: {md_err}")
+    _say("10-deepmd-nvt-f64", steps=20, dt_ps=0.0005, T0=330.0,
+         rel_err_card_vs_host=json.dumps(
+             {k: f"{v:.3g}" for k, v in md_err.items()}).replace(" ", ""),
+         tol=DEEPMD_MD_TOL,
+         final_T=f"{float(integ.temperature(finals[1].v)):.2f}")
+
+    # ---- the compressed model, f64 tables at stride 0.005 over this
+    # frame's own normalised s(r) ----
+    R, _ = env_mat(ch, bh, th, spec.descriptor)
+    s_in = normalize_env_mat(R, th, ph["stats"]["davg"],
+                             ph["stats"]["dstd"])[..., 0]
+    cms = [compress_model(p_, spec, stride=0.005, sample_inputs=s_in)
+           for p_ in (pg, ph)]
+    comp = [energy_force_compressed(cm, c_, b_, t_) for cm, c_, b_, t_ in
+            zip(cms, (cg, ch), (bg, bh), (tg, th))]
+    comp_err = {k: rel(g, w) for k, g, w in zip("EF", comp[0], comp[1])}
+    _check(all(v <= DEEPMD_F64_TOL for v in comp_err.values()),
+           f"compressed model f64, card against host CPU: {comp_err}")
+    table = cms[1].tables[0][0]
+    upper = table.lower + table.stride * table.n_intervals
+    e_exact = abs(float(want[0]))
+    _say("10-deepmd-compressed-f64", stride=0.005,
+         table=f"[{table.lower:.3f},{upper:.3f}]x{table.n_intervals}",
+         rel_err_card_vs_host=json.dumps(
+             {k: f"{v:.3g}" for k, v in comp_err.items()}).replace(" ", ""),
+         tol=DEEPMD_F64_TOL,
+         vs_exact_e_rel=f"{abs(float(comp[1][0] - want[0])) / e_exact:.3g}",
+         vs_exact_f_abs=f"{float((comp[1][1] - want[1]).abs().max()):.3g}")
+
+    # ---- f32 timings on the card ----
+    p32, c32, b32, t32 = on(dev, torch.float32)
+    cb32 = torch.as_tensor(cb_np, dtype=torch.float32, device=dev)
+    bb32 = torch.as_tensor(bb_np, dtype=torch.float32, device=dev)
+    e32 = energy_force_virial(p32, spec, c32, b32, t32)
+    err32 = {k: rel(g, w) for k, g, w in zip("EFW", e32, want)}
+    _check(all(v <= DEEPMD_F32_TOL for v in err32.values()),
+           f"DeePMD E/F/W f32 on the card against f64: {err32}")
+
+    def single():
+        return energy_force_virial(p32, spec, c32, b32, t32)
+
+    @torch.no_grad()
+    def forward():
+        return total_energy(p32, spec, c32, b32, t32)
+
+    def batched():
+        return energy_force_virial(p32, spec, cb32, bb32, t32)
+
+    cm32 = compressed_to(cms[0], dtype=torch.float32)
+
+    def compressed():
+        return energy_force_compressed(cm32, c32, b32, t32)
+
+    def pot_eval():
+        return pot32.eval(coord_np, box_np, types_np)
+
+    flops = _deepmd_flops(spec, n)
+    # weights and coordinates read once, E/F/W written once (f32)
+    leaves = []
+    map_tree(leaves.append, p32)
+    n_weights = sum(x.numel() for x in leaves)
+    bound = _bound(4.0 * (n_weights + 2 * n * 3 + 10), flops["total"])
+    bound_b = _bound(4.0 * (n_weights + nb * (2 * n * 3 + 10)),
+                     nb * flops["total"])
+    bound_f = _bound(4.0 * (n_weights + n * 3 + 10), flops["forward"])
+    out = {}
+    for name, fn in (("eval", single), ("forward-only", forward),
+                     ("batch8", batched), ("compressed", compressed),
+                     ("deeppot", pot_eval)):
+        # one call per timing: a call launches hundreds of kernels, more
+        # than the device's launch queue lets the host run ahead by twice.
+        # DeepPot.eval copies its host arrays in, which waits on the
+        # device: it has no device time apart from its wall time
+        dms = float("nan") if fn is pot_eval else statistics.median(
+            device_ms(fn, device=dev, reps=1) for _ in range(9))
+        wall = _wall_ms(fn, reps=20)
+        acts = device_activities(fn)
+        busy = sum(us for _, us in acts) / 1e3
+        out[name] = (dms, wall, len(acts), busy)
+    for name, (dms, wall, kern, busy) in out.items():
+        b_ms, b_by = {"batch8": bound_b, "forward-only": bound_f}.get(
+            name, bound)
+        _say(f"10-deepmd-{name}-f32", frames=nb if name == "batch8" else 1,
+             device_ms=f"{dms:.4f}", host_wall_ms=f"{wall:.4f}",
+             device_kernels=kern, device_busy_ms=f"{busy:.4f}",
+             device_idle_share=f"{max(0.0, 1 - busy / wall):.3f}",
+             bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+             share_of_bound=f"{b_ms / dms:.4f}")
+    integ = NVTIntegrator(lambda x: energy_force_virial(
+        p32, spec, x, b32, t32)[1], masses, box_np, device=dev,
+        dtype=torch.float32)
+    state, f = integ.initial_state(coord_np, v0)
+    for _ in range(5):
+        state, f = integ.step(state, f)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        state, f = integ.step(state, f)
+    torch.cuda.synchronize()
+    md_ms = (time.perf_counter() - t0) / 100 * 1e3
+    _check(bool(torch.isfinite(state.x).all() and torch.isfinite(f).all()),
+           "f32 NVT state not finite")
+    step_acts = device_activities(lambda: integ.step(state, f))
+    step_busy = sum(us for _, us in step_acts) / 1e3
+    _say("10-deepmd-md-f32", steps=100, ms_per_step=f"{md_ms:.4f}",
+         device_kernels_per_step=len(step_acts),
+         device_busy_ms_per_step=f"{step_busy:.4f}",
+         device_idle_share=f"{max(0.0, 1 - step_busy / md_ms):.3f}",
+         final_T=f"{float(integ.temperature(state.v)):.2f}",
+         f32_rel_err_vs_f64=json.dumps(
+             {k: f"{v:.3g}" for k, v in err32.items()}).replace(" ", ""))
+    _say("10-deepmd-flops", dense_flops_forward=flops["forward"],
+         dense_flops_eval=flops["total"],
+         dense_flops_own_type_only=flops["own_type_only"],
+         weights=n_weights, bound_ms_f32=f"{bound[0]:.4f}",
+         bound_by=bound[1],
+         hand_kernel_launches=sum(mod.LAUNCHES for mod in launch_mods))
+
 
 
 def main() -> int:
@@ -1022,6 +1291,9 @@ def main() -> int:
              eltk_device_ms=f"{ms_of(eltk):.4f}",
              cusparse_k_f32_ms=f"{fem_cusparse_ms:.4f}")
     del m32, m64
+
+    # ---- 10: DeePMD se_e2_a water at the flagship width -----------------
+    _deepmd_water(dev)
 
     sources = {"permute_gather": "g4s_tpu_torch/csrc/permute.cu",
                "wsell_spmv": "g4s_tpu_torch/csrc/wsell_spmv.cu",

@@ -13,9 +13,10 @@ names so each counterpart is easy to find, and imports neither `jax` nor
   g4s_tpu_torch.engine   — build_graph / mxv / vxm / mxm dispatch,
                            operator forms, semirings, GAS
   g4s_tpu_torch.obs      — stage timings and the device timer
-  g4s_tpu_torch.models   — workloads: the regional CitcomS step
+  g4s_tpu_torch.models   — workloads: the regional CitcomS step, the
+                           DeePMD se_e2_a serving path
   g4s_tpu_torch.drivers  — the mm/ and mv/ benchmark and regression
-                           drivers, the CitcomSRegional CLI
+                           drivers, the CitcomSRegional and dp CLIs
   g4s_tpu_torch.kernels  — the nvcc build and ctypes loader of csrc/*.cu
 
 Entry points take `device="cuda"` by default; pass device="cpu" to run on

@@ -1,1 +1,1 @@
-"""Workload models ported from g4s_tpu.models (CitcomS so far)."""
+"""Workload models ported from g4s_tpu.models: CitcomS and DeePMD."""

@@ -1,0 +1,21 @@
+"""DeePMD se_e2_a serving path (counterpart of g4s_tpu/models/deepmd):
+descriptor, networks, the energy model with forces and virial, freeze,
+DeepPot inference, NVT MD and model compression. Training (train.py and
+its DDP data parallelism) is not ported yet (ROADMAP.md queue 1, item 8).
+"""
+from g4s_tpu_torch.models.deepmd.descriptor import (  # noqa: F401
+    DescriptorSpec, env_mat, compute_stats,
+)
+from g4s_tpu_torch.models.deepmd.model import (  # noqa: F401
+    ModelSpec, init_params, total_energy, energy_force_virial,
+)
+from g4s_tpu_torch.models.deepmd.data import DataSystem, load_system  # noqa: F401
+from g4s_tpu_torch.models.deepmd.freeze import (  # noqa: F401
+    freeze, load_frozen, params_from_numpy, params_to_numpy,
+)
+from g4s_tpu_torch.models.deepmd.infer import DeepPot, calc_model_devi  # noqa: F401
+
+WATER_SPEC = ModelSpec(
+    DescriptorSpec(rcut=6.0, rcut_smth=0.5, sel=(46, 92), ntypes=2),
+    embed_neurons=(25, 50, 100), axis_neuron=16,
+    fit_neurons=(240, 240, 240))

@@ -1,0 +1,191 @@
+"""se_e2_a environment-matrix descriptor (counterpart of
+g4s_tpu/models/deepmd/descriptor.py).
+
+The semantics of the reference's native pipeline (deepmd/source/lib/src/
+{neighbor_list,fmt_nlist,env_mat}.cc behind the ProdEnvMatA op):
+
+  - neighbor list: all-pairs minimum-image distances (a dense (N, N)
+    distance matrix at the O(100)-atom sizes of the training systems),
+  - per-type sorted truncation to sel[t] slots (fmt_nlist.cc layout),
+  - smoothed env matrix rows s(r) * (1, x/r, y/r, z/r) with the quintic
+    switch between rcut_smth and rcut (env_mat.cc, switcher spline5).
+
+Every function takes one frame, coords (N, 3) and box (3, 3), or a batch
+of frames, coords (B, N, 3) and box (B, 3, 3), sharing one types (N,).
+Forces and virials come from torch.autograd through this whole function.
+The cell-list and non-periodic variants (`env_mat_celllist`,
+`env_mat_nopbc`) and the field descriptor (`atomic_descriptor_ef`) are not
+ported yet (ROADMAP.md queue 1, item 8).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+class DescriptorSpec(NamedTuple):
+    rcut: float
+    rcut_smth: float
+    sel: Tuple[int, ...]      # neighbors kept per type
+    ntypes: int
+
+    @property
+    def nnei(self) -> int:
+        return int(sum(self.sel))
+
+
+def min_image_displacements(coords, box):
+    """Pairwise displacement r_j - r_i with periodic minimum image.
+
+    coords: (..., N, 3); box: (..., 3, 3) row-vector cell. Returns
+    (..., N, N, 3). Exact for orthorhombic cells and cells with small skew
+    (one-image wrap), as the reference's region.cc diffNearestNeighbor.
+    """
+    disp = coords[..., None, :, :] - coords[..., :, None, :]
+    # inv_ex: torch.linalg.inv reads its error flag back to the host, a
+    # device sync in every eval
+    inv = torch.linalg.inv_ex(box)[0][..., None, :, :]
+    frac = disp @ inv
+    frac = frac - torch.round(frac)          # half to even, as jnp.round
+    return frac @ box[..., None, :, :]
+
+
+def switch_fn(r, rmin, rmax):
+    """DeePMD quintic switching: 1 for r<rmin, ->0 at rmax
+    (source/lib/include/switcher.h spline5_switch)."""
+    u = (r - rmin) / (rmax - rmin)
+    sw = 1.0 + u * u * u * (-10.0 + u * (15.0 - 6.0 * u))
+    return torch.where(r < rmin, 1.0, torch.where(r > rmax, 0.0, sw))
+
+
+def env_mat(coords, box, types, spec: DescriptorSpec, *,
+            efield=None, ef_mode: str = "none"):
+    """Environment matrix of one frame or a batch of frames.
+
+    coords: (..., N, 3) Angstrom; box: (..., 3, 3); types: (N,) int.
+    Returns R: (..., N, nnei, 4) and nlist: (..., N, nnei) neighbor
+    indices (-1 pad). Slots are laid out per type section (sel[0] slots of
+    type 0, ...), each section sorted by distance: fmt_nlist's layout.
+
+    efield/ef_mode give the se_a_ef variants (ComputeDescriptor.h
+    compute_descriptor_se_a_ef_para/_vert): the vector channels use the
+    component of r parallel ("para") or perpendicular ("vert") to the
+    per-atom unit field, (..., N, 3), while channel 0 keeps 1/r of the
+    full distance.
+    """
+    n = coords.shape[-2]
+    disp = min_image_displacements(coords, box)          # (..., N, N, 3)
+    r2 = torch.sum(disp * disp, dim=-1)
+    big = 1e10
+    r2 = r2 + big * torch.eye(n, dtype=r2.dtype, device=r2.device)
+    types = torch.as_tensor(types, device=coords.device)
+
+    R_secs, nl_secs = [], []
+    for t in range(spec.ntypes):
+        k = spec.sel[t]
+        r2_t = torch.where(types[None, :] == t, r2, big)
+        if r2_t.shape[-1] < k:
+            # fewer atoms than sel slots (tiny systems): pad candidates
+            # with far-away dummies; they fail the rcut test and mask out
+            r2_t = F.pad(r2_t, (0, k - r2_t.shape[-1]), value=big)
+        # ties occur only among `big` entries, which fail the rcut test
+        # below: their order does not reach R or nlist
+        d2, idx = torch.topk(r2_t, k, dim=-1, largest=False, sorted=True)
+        valid = d2 < spec.rcut ** 2
+        # the unselected branch must stay finite: sqrt'(0) = inf times the
+        # where's zero cotangent would give NaN in the backward pass
+        d = torch.sqrt(torch.where(valid, d2, 1.0))
+        # clamp pad indices (past N on the padded path) before the gather
+        idx_g = torch.where(valid, idx, 0)
+        vec = torch.gather(disp, -2,
+                           idx_g[..., None].expand(*idx_g.shape, 3))
+        sw = switch_fn(d, spec.rcut_smth, spec.rcut)
+        s = torch.where(valid, sw / d, 0.0)
+        row0 = s
+        if efield is not None and ef_mode != "none":
+            ef = efield / torch.linalg.norm(efield, dim=-1, keepdim=True)
+            dot = torch.sum(vec * ef[..., None, :], dim=-1, keepdim=True)
+            para = dot * ef[..., None, :]
+            vec_eff = para if ef_mode == "para" else vec - para
+        else:
+            vec_eff = vec
+        rows = s[..., None] * vec_eff \
+            / torch.where(valid, d, 1.0)[..., None]
+        R_secs.append(torch.cat([row0[..., None], rows], dim=-1)
+                      * valid[..., None])
+        nl_secs.append(torch.where(valid, idx, -1))
+    R = torch.cat(R_secs, dim=-2)                        # (..., N, nnei, 4)
+    nlist = torch.cat(nl_secs, dim=-1)
+    return R, nlist
+
+
+def normalize_env_mat(R, types, davg, dstd):
+    """Per-center-type standardization (the trained davg/dstd constants of
+    DescrptSeA, se_a.py:227-253)."""
+    types = torch.as_tensor(types, device=R.device).long()
+    return (R - davg[types]) / dstd[types]
+
+
+def _host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def compute_stats(frames_R: Sequence, frames_types, ntypes: int,
+                  nnei: int) -> Tuple[np.ndarray, np.ndarray]:
+    """compute_input_stats (se_a.py:304-420): davg=(r̄,0,0,0), dstd from
+    radial/angular second moments, broadcast over neighbor slots.
+    frames_R holds one (N, nnei, 4) env mat per frame (tensors or arrays)."""
+    sumr = np.zeros(ntypes); sumr2 = np.zeros(ntypes)
+    suma = np.zeros(ntypes); suma2 = np.zeros(ntypes)
+    sumn = np.zeros(ntypes)
+    for R, types in zip(frames_R, frames_types):
+        R = _host(R); types = _host(types)
+        for t in range(ntypes):
+            sub = R[types == t]                           # (nt, nnei, 4)
+            sumr[t] += sub[..., 0].sum()
+            sumr2[t] += (sub[..., 0] ** 2).sum()
+            suma[t] += sub[..., 1:].sum()
+            suma2[t] += (sub[..., 1:] ** 2).sum()
+            sumn[t] += sub.shape[0] * sub.shape[1]
+    davg = np.zeros((ntypes, nnei, 4))
+    dstd = np.ones((ntypes, nnei, 4))
+    for t in range(ntypes):
+        if sumn[t] == 0:
+            continue
+        r_avg = sumr[t] / sumn[t]
+        std_r = np.sqrt(max(sumr2[t] / sumn[t] - r_avg ** 2, 0.0))
+        std_a = np.sqrt(max(suma2[t] / (3 * sumn[t]), 0.0))
+        davg[t, :, 0] = r_avg
+        dstd[t, :, 0] = max(std_r, 1e-2)
+        dstd[t, :, 1:] = max(std_a, 1e-2)
+    return davg, dstd
+
+
+def neighbor_stat(frames_coord, frames_box, types, rcut: float,
+                  ntypes: int):
+    """Max neighbor count per type over sample frames: the auto-`sel`
+    helper (deepmd/deepmd/utils/neighbor_stat.py + source/op/
+    neighbor_stat.cc). Returns (max_per_type, suggested_sel)."""
+    types = np.asarray(types)
+    max_nbor = np.zeros(ntypes, dtype=np.int64)
+    for coord, box in zip(frames_coord, frames_box):
+        c = np.asarray(coord).reshape(-1, 3)
+        b = np.asarray(box).reshape(3, 3)
+        d = c[None] - c[:, None]
+        f = d @ np.linalg.inv(b)
+        f -= np.round(f)
+        r = np.linalg.norm(f @ b, axis=-1)
+        np.fill_diagonal(r, np.inf)
+        within = r < rcut
+        for t in range(ntypes):
+            cnt = within[:, types == t].sum(axis=1)
+            max_nbor[t] = max(max_nbor[t], int(cnt.max()))
+    # suggested sel: ~10% headroom rounded up to a multiple of 4
+    sel = (np.ceil(max_nbor * 1.1 / 4) * 4).astype(int)
+    return max_nbor, tuple(int(s) for s in sel)

@@ -56,7 +56,8 @@ def _random(seed=0, n_rows=60, n_cols=50, density=0.08, dups=True):
 
 def test_package_imports_no_jax():
     code = ("import sys, g4s_tpu_torch, g4s_tpu_torch.engine, "
-            "g4s_tpu_torch.ops, g4s_tpu_torch.kernels._build; "
+            "g4s_tpu_torch.ops, g4s_tpu_torch.kernels._build, "
+            "g4s_tpu_torch.models.deepmd, g4s_tpu_torch.drivers.dp; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'g4s_tpu.')) or m == 'g4s_tpu'); "
             "print(bad); sys.exit(1 if bad else 0)")
