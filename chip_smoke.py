@@ -10,7 +10,9 @@ Run from the root of a checkout: `python3 chip_smoke.py`. It
   2. holds each kernel against its plain PyTorch version on the card:
      permute_gather bit-exact (m = 2^20, f32 and f64, and its fused
      cases: lengths 2^20 + 0..7, sigma reaching past len(z), n_out >
-     len(sigma), sigma and z as offset views), wsell_spmv
+     len(sigma), sigma and z as offset views), the segment sum on 2^20
+     heavily cancelling values in f64 and f32 (two calls bitwise equal and
+     equal to the host CPU's in-order sum), wsell_spmv
      within a relative 1e-5 on the multi-window, rectangular, W=2 and W=16
      packs;
   3. drives the SpMV main path, build_graph + mxv, on the randomly
@@ -55,7 +57,10 @@ Run from the root of a checkout: `python3 chip_smoke.py`. It
      T_mean within a relative 5e-5 of
      benchmarks/cookbook2_blessed_f64.json (how far rounding alone moves
      that trajectory; whether it stayed within 1e-6 is printed), its
-     Uzawa/CG counts printed; then one f64 step from the card's state
+     Uzawa/CG counts printed, run twice: every sum on the card has a fixed
+     order (the segment-sum kernel), so the two runs' diagnostics and
+     counts must be bitwise equal at every step, as must two f32 runs
+     below; then one f64 step from the card's state
      after its initial solve with every solver loop run to a fixed cap,
      on the card against the host CPU, within 1e-10; in f32 the initial
      solve, one warm-up step and 5 timed steps, vrms, nu_top and dt within
@@ -63,8 +68,10 @@ Run from the root of a checkout: `python3 chip_smoke.py`. It
      device kernels and device-busy ms (torch.profiler) per step; the
      stencil matvec's device time beside its bound and the
      element-by-element form's, the two forms within 1e-5 (f32) and 1e-12
-     (f64) of each other. No hand-written kernel lies on this path (its
-     launch counts are printed, 0).
+     (f64) of each other, and the segment-sum kernel at the f64 stencil
+     build's shapes beside its plain version and one index_add_. Of the
+     hand kernels only the segment sum lies on this path (the SpMV
+     kernels' launch counts are printed, 0).
  10. DeePMD se_e2_a water at the flagship width (WATER_SPEC: rcut 6,
      sel 46/92, embedding 25-50-100, axis 16, fitting 240-240-240;
      __graft_entry__.py's 192-atom frame, random weights from a seeded CPU
@@ -81,6 +88,13 @@ Run from the root of a checkout: `python3 chip_smoke.py`. It
      their bound at the f32 rate. No Pallas kernel lies on this path in
      the reference, so no hand kernel does here (launch counts printed,
      0).
+ 11. the per-matrix WSELL-K kernels (the reference's two probes,
+     benchmarks/static_spmv_probe*.py) on phase 3's stencil pack: the
+     chain form (one kernel per tile) and the one-kernel form, each
+     generated for this pack and built by nvcc (wall time printed), against
+     its plain version and scipy f64 within a relative 1e-5 and against the
+     wsell_spmv kernel (max abs error printed), timed warm and cold beside
+     WSELL's bound, the plain version and cuSPARSE's CSR SpMV.
 
 Device times are medians per call between back-to-back calls queued
 behind a device sleep (g4s_tpu_torch.obs.timings.device_ms); "cold" times
@@ -121,6 +135,9 @@ COOKBOOK2_F64_TOL = 5e-5
 COOKBOOK2_F64_GOAL = 1e-6
 COOKBOOK2_F32_TOL = 1e-4
 COOKBOOK2_FIXED_TOL = 1e-10
+# tiles of the stencil pack that phase 11's one-kernel form covers (None:
+# all of them)
+STATIC_ONE_TILES = None
 # DeePMD water (phase 10): f64 E/F/W, compressed E/F and the frozen and
 # batched DeepPot paths, card against host CPU, relative to each one's
 # largest magnitude; 20 NVT steps compound the force differences, so x and
@@ -371,7 +388,9 @@ def _cookbook2(model, steps: int, blessed: dict, keys, tol: float,
     untimed steps; returns the state after the initial solve, the last
     state, per-step diagnostics and the largest relative error of each of
     `keys` against the blessed f64 trajectory over every step taken, which
-    must stay within `tol`. Observables are read after the timed loop."""
+    must stay within `tol`, and `trace`: each step's vrms, nu_top, nu_bot,
+    dt, T_mean and Uzawa/CG counts, as exact values, for the determinism
+    check. Observables are read after the timed loop."""
     import torch
     from g4s_tpu_torch.models.citcoms import solvers
     from g4s_tpu_torch.models.citcoms.observables import (rms_velocity,
@@ -391,7 +410,7 @@ def _cookbook2(model, steps: int, blessed: dict, keys, tol: float,
     wall = (time.perf_counter() - t0) / steps
     syncs = solvers.HOST_SYNCS / steps
     err = {k: 0.0 for k in keys}
-    counts, per_step = [], []
+    counts, per_step, trace = [], [], []
     for i, (s_i, d_i) in enumerate(kept):
         got = {"vrms": rms_velocity(model, s_i.V),
                "nu_top": surface_heat_flux(model, s_i.T, top=True)[1],
@@ -402,12 +421,14 @@ def _cookbook2(model, steps: int, blessed: dict, keys, tol: float,
         err = {k: max(err[k], e_i[k]) for k in keys}
         per_step.append(f"{max(e_i.values()):.2g}")
         counts.append(f"{d_i.uzawa_iterations}/{d_i.inner_iterations}")
+        trace.append(tuple(float(v) for v in got.values())
+                     + (d_i.uzawa_iterations, d_i.inner_iterations))
     _check(all(v <= tol for v in err.values()),
            f"Cookbook2 {model.dtype} against the blessed trajectory: {err} "
            f"(Uzawa/CG per step {counts})")
     timed = [d for _, d in kept[after:]]
     return {"s0": s0, "s": s, "wall_s": wall, "host_syncs": syncs, "err": err,
-            "counts": counts, "per_step_err": per_step,
+            "counts": counts, "per_step_err": per_step, "trace": trace,
             "inner": sum(d.inner_iterations for d in timed) / steps}
 
 
@@ -656,6 +677,86 @@ def _deepmd_water(dev) -> None:
 
 
 
+def _static_kernels(dev, ws, x_pad, a_p, err, ms, plain_ms, library_ms,
+                    bound, launches, ms_of, flush_l2) -> None:
+    """Phase 11: both per-matrix WSELL-K kernels (ops/static_spmv.py, the
+    reference's two probes) on phase 3's stencil pack `ws`, its x and its
+    RCM-renumbered matrix `a_p`: each built by nvcc for this pack, against
+    its plain version and scipy f64 within a relative 1e-5, against the
+    wsell_spmv kernel (the same products in the same order), and timed warm
+    and cold beside the bound of WSELL's row, its plain version and
+    cuSPARSE's CSR SpMV of the same rows. The one kernel covers the first
+    STATIC_ONE_TILES tiles (all when None)."""
+    import concurrent.futures
+
+    import numpy as np
+    import torch
+    from g4s_tpu_torch.ops import static_spmv, wsell_spmv
+    starts_h, kc_h = static_spmv.static_windows(ws)
+    # the plain version's timing takes them on the card: a copy from the
+    # host would make each call wait for the device
+    starts_d = torch.from_numpy(starts_h).to(dev)
+    kc_d = torch.from_numpy(kc_h).to(dev)
+    tiles = ws.lanes.shape[0]
+    t0 = time.perf_counter()
+    # one nvcc per form, both started together
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        chain = pool.submit(static_spmv.build_static_chain, ws, starts_h,
+                            kc_h, device=dev)
+        one = pool.submit(static_spmv.build_static_one_kernel, ws, starts_h,
+                          kc_h, STATIC_ONE_TILES, device=dev)
+        forms = {"static_spmv_chain": chain.result(),
+                 "static_spmv_one": one.result()}
+    build_s = time.perf_counter() - t0
+    n = a_p.shape[0]
+    y_ws = wsell_spmv.spmv_wsell_chain(ws, x_pad)
+    y64 = a_p.astype(np.float64) @ x_pad[:n].cpu().numpy().astype(np.float64)
+    static_spmv.CHAIN_LAUNCHES = static_spmv.ONE_LAUNCHES = 0
+    ys = {name: f(x_pad) for name, f in forms.items()}
+    torch.cuda.synchronize()
+    launches["static_spmv_chain"] = static_spmv.CHAIN_LAUNCHES
+    launches["static_spmv_one"] = static_spmv.ONE_LAUNCHES
+    _check((launches["static_spmv_chain"], launches["static_spmv_one"])
+           == (tiles, 1), f"static kernel launches {launches}")
+    for name, f in forms.items():
+        y = ys[name]
+        rows = f.n_tiles * ws.ppt * ws.rows_per_pack
+        r = min(n, rows)
+        want = static_spmv._static_spmv_plain(ws, starts_h, kc_h, x_pad,
+                                              f.n_tiles)
+        rel_pl = _rel_err(y.cpu(), want.cpu())
+        rel_sp = _rel_err(y[:r].cpu(), y64[:r])
+        vs_wsell = float((y - y_ws[: f.n_out]).abs().max())
+        err[name] = float((y - want).abs().max())
+        _check(rel_pl <= REL_TOL and rel_sp <= REL_TOL,
+               f"{name}: rel err vs plain {rel_pl}, vs scipy f64 {rel_sp}")
+        a_rows = _csr_tensor(a_p[:r].tocsr(), dev)
+        x_n = x_pad[:n].contiguous()
+        ms[name] = ms_of(lambda: f(x_pad))
+        cold = ms_of(lambda: f(x_pad), before=flush_l2)
+        plain_ms[name] = ms_of(lambda: static_spmv._static_spmv_plain(
+            ws, starts_d, kc_d, x_pad, f.n_tiles))
+        library_ms[name] = ms_of(lambda: torch.mv(a_rows, x_n))
+        # as WSELL's row: the tiles' codes (int16), values, window starts
+        # and x read, y written; one FMA per stored slot
+        slots = f.n_tiles * ws.ppt * 1024
+        bound[name] = _bound(slots * 6 + f.n_tiles * ws.ppt * ws.k * 4
+                             + x_pad.numel() * 4 + f.n_out * 4, 2.0 * slots)
+        _say("11-static", kernel=name, tiles=f"{f.n_tiles}/{tiles}",
+             packs=starts_h.shape[0], K=ws.k, kc_mean=f"{kc_h.mean():.3f}",
+             nvcc_s=f"{f.nvcc_s:.2f}", build_wall_s=f"{build_s:.2f}",
+             launches_per_call=launches[name],
+             rel_err_vs_plain=f"{rel_pl:.3g}",
+             rel_err_vs_scipy_f64=f"{rel_sp:.3g}",
+             max_abs_err_vs_wsell_kernel=f"{vs_wsell:.3g}",
+             device_ms=f"{ms[name]:.4f}", cold_ms=f"{cold:.4f}",
+             bound_ms=f"{bound[name][0]:.4f}",
+             share_of_bound=f"{bound[name][0] / ms[name]:.3f}",
+             plain_ms=f"{plain_ms[name]:.4f}",
+             cusparse_ms=f"{library_ms[name]:.4f}")
+        del a_rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -680,7 +781,8 @@ def main() -> int:
                                               state_from_numpy)
     from g4s_tpu_torch.obs.timings import (device_activities, device_kernels,
                                            device_ms)
-    from g4s_tpu_torch.ops import bwell_spmv, route, spgemm_esc, wsell_spmv
+    from g4s_tpu_torch.ops import (bwell_spmv, route, segment, spgemm_esc,
+                                   static_spmv, wsell_spmv)
     from g4s_tpu_torch.sparse import CSR, dense_to_csr
 
     dev = torch.device("cuda")
@@ -819,6 +921,23 @@ def main() -> int:
     _say("2-permute-fused", cases=n_cases, lengths="2^20+0..7",
          dtypes="f32,f64", sigma_past_z=1000, n_out="m+8+r",
          offsets="sigma 0..3, z 0..3", bit_exact=True)
+    # the segment-sum kernel on 2^20 values that cancel heavily (each
+    # with both signs, magnitudes 1e-8..1e8) over sorted ids: two calls
+    # bitwise equal, and equal to the host CPU's in-order index_add_
+    rs = np.random.default_rng(11)
+    for dt in (torch.float64, torch.float32):
+        big = rs.standard_normal(m // 2) * 10.0 ** rs.integers(-8, 9, m // 2)
+        data = torch.from_numpy(np.concatenate([big, -big])[rs.permutation(m)])
+        ids = torch.from_numpy(np.sort(rs.integers(0, 4096, m)))
+        d, i = data.to(dev, dt), ids.to(dev)
+        got = segment.sorted_segment_sum(d, i, 5000)
+        _check(torch.equal(got, segment.sorted_segment_sum(d, i, 5000))
+               and torch.equal(got.cpu(), segment._sorted_segment_sum_plain(
+                   d.cpu(), ids, 5000)),
+               f"sorted_segment_sum {dt}: not repeatable or not the host "
+               "CPU's sum")
+    _say("2-segment-sum", m=m, segments=5000, dtypes="f64,f32",
+         bitwise_repeatable=True, equals_host_cpu=True)
     for name, a in _wsell_cases():
         packed = wsell_spmv.pack_wsell(CSR.from_scipy(a), device=dev,
                                        packs_per_tile=2)
@@ -920,7 +1039,7 @@ def main() -> int:
          permute_bound_ms=f"{bound['permute_gather'][0]:.4f}",
          gbs_mxv=f"{stencil_bytes / mxv_ms / 1e6:.1f}",
          gbs_hoisted=f"{stencil_bytes / ms['wsell_spmv'] / 1e6:.1f}")
-    del A_p, A_p_t
+    del A_p_t
 
     route.LAUNCHES = 0
     wsell_spmv.LAUNCHES = 0
@@ -942,6 +1061,8 @@ def main() -> int:
            f"stencil mxv runs {len(names)} device kernels: {names}")
     _say("3-kernels", device_kernels_per_mxv=len(names),
          permute_gather=n_perm, names=_kernel_names(names))
+    # phase 11 runs the per-matrix kernels on this pack, x and matrix
+    ws3, x_pad3 = g.wsell, x_pad
     del g, A
 
     # ---- 4: RCM-DIA: the shuffled 16-diagonal band ----------------------
@@ -1206,13 +1327,20 @@ def main() -> int:
     m64 = CitcomModel(cookbook2, dtype=torch.float64, device=dev)
     model_s = time.perf_counter() - t0
     launch_mods = (route, wsell_spmv, bwell_spmv)
-    for mod in launch_mods:
+    for mod in launch_mods + (segment,):
         mod.LAUNCHES = 0
-    r64 = _cookbook2(m64, 10, blessed,
-                     ("vrms", "nu_top", "nu_bot", "dt", "T_mean"),
-                     COOKBOOK2_F64_TOL)
+    f64_keys = ("vrms", "nu_top", "nu_bot", "dt", "T_mean")
+    r64 = _cookbook2(m64, 10, blessed, f64_keys, COOKBOOK2_F64_TOL)
+    # a second run in the same process: every sum on the card has one
+    # order, so each step's diagnostics and counts must be bitwise equal
+    r64b = _cookbook2(m64, 10, blessed, f64_keys, COOKBOOK2_F64_TOL)
+    _check(r64b["trace"] == r64["trace"],
+           f"Cookbook2 f64: two runs differ: {r64['trace']} against "
+           f"{r64b['trace']}")
     _say("9-cookbook2-f64", grid="33x33x9", nel=m64.mesh.nel, steps=10,
-         model_build_s=f"{model_s:.2f}", s_per_step=f"{r64['wall_s']:.4f}",
+         runs=2, deterministic=True,
+         model_build_s=f"{model_s:.2f}",
+         s_per_step=f"{r64['wall_s']:.4f},{r64b['wall_s']:.4f}",
          inner_cg_per_step=r64["inner"],
          host_syncs_per_step=r64["host_syncs"],
          uzawa_cg_per_step=",".join(r64["counts"]),
@@ -1246,14 +1374,24 @@ def main() -> int:
     del s0, sg, sh, m_host
     r32 = _cookbook2(m32, 5, blessed, ("vrms", "nu_top", "dt"),
                      COOKBOOK2_F32_TOL, after=1)
+    r32b = _cookbook2(m32, 5, blessed, ("vrms", "nu_top", "dt"),
+                      COOKBOOK2_F32_TOL, after=1)
+    _check(r32b["trace"] == r32["trace"],
+           f"Cookbook2 f32: two runs differ: {r32['trace']} against "
+           f"{r32b['trace']}")
     torch.cuda.synchronize()
     cb_launches = sum(mod.LAUNCHES for mod in launch_mods)
+    launches["sorted_segment_sum"] = segment.LAUNCHES
+    _check(launches["sorted_segment_sum"] > 0,
+           "Cookbook2 launched no segment-sum kernel")
     # one more step under torch.profiler: its device activities and the
     # device time they add up to, against the step's wall time above
     step_acts = device_activities(lambda: m32.step(r32["s"]))
     busy_ms = sum(us for _, us in step_acts) / 1e3
-    _say("9-cookbook2-f32", warmup_steps=1, timed_steps=5,
-         s_per_step=f"{r32['wall_s']:.4f}", inner_cg_per_step=r32["inner"],
+    _say("9-cookbook2-f32", warmup_steps=1, timed_steps=5, runs=2,
+         deterministic=True,
+         s_per_step=f"{r32['wall_s']:.4f},{r32b['wall_s']:.4f}",
+         pr4_s_per_step="0.0961-0.2090", inner_cg_per_step=r32["inner"],
          host_syncs_per_step=r32["host_syncs"],
          device_kernels_per_step=len(step_acts),
          device_busy_ms_per_step=f"{busy_ms:.2f}",
@@ -1262,7 +1400,8 @@ def main() -> int:
          max_rel_err=json.dumps({k: f"{v:.3g}" for k, v in
                                  r32["err"].items()}).replace(" ", ""),
          per_step_max_rel_err=",".join(r32["per_step_err"]),
-         hand_kernel_launches_f64_f32=cb_launches)
+         spmv_kernel_launches_f64_f32=cb_launches,
+         segment_sum_launches_f64_f32=launches["sorted_segment_sum"])
     for name, m in (("f32", m32), ("f64", m64)):
         s_ = r32["s"] if name == "f32" else r64["s"]
         ops = m._build_ops(s_.T, s_.V)
@@ -1290,19 +1429,79 @@ def main() -> int:
                  lambda: [stencil() for _ in range(10)])) / 10,
              eltk_device_ms=f"{ms_of(eltk):.4f}",
              cusparse_k_f32_ms=f"{fem_cusparse_ms:.4f}")
-    del m32, m64
+    # the segment-sum kernel at the largest sum of the Cookbook2 step, the
+    # f64 stencil build: the (nel*64, 9) element blocks summed through the
+    # plan's order into nno*27 stencil slots. Bitwise repeatable and equal
+    # to the host CPU's in-order sum; the plain version on the card sums
+    # with index_add_'s atomics, in another order (relative 1e-12). The
+    # library call is one index_add_ of the unsorted blocks (its zero fill
+    # included), the same function
+    plan = m64.stencil_plan
+    ops = m64._build_ops(r64["s"].T, r64["s"].V)
+    flat = ops.elt_k.reshape(-1, 8, 3, 8, 3).permute(0, 1, 3, 2, 4) \
+        .reshape(-1, 9).contiguous()
+    n_seg = m64.mesh.nno * 27
+    seg_sum = lambda: segment.sorted_segment_sum(flat, plan.seg_ids, n_seg,
+                                                 order=plan.order)
+    seg_plain = lambda: segment._sorted_segment_sum_plain(
+        flat, plan.seg_ids, n_seg, order=plan.order)
+    ids_by_row = torch.empty_like(plan.seg_ids)
+    ids_by_row[plan.order] = plan.seg_ids
+    seg_lib = lambda: torch.zeros((n_seg, 9), dtype=flat.dtype,
+                                  device=dev).index_add_(0, ids_by_row, flat)
+    got = seg_sum()
+    _check(torch.equal(got, seg_sum()) and torch.equal(
+        got.cpu(), segment._sorted_segment_sum_plain(
+            flat.cpu(), plan.seg_ids.cpu(), n_seg, order=plan.order.cpu())),
+        "segment sum at the stencil build: not bitwise repeatable or not "
+        "the host CPU's sum")
+    want = seg_plain()
+    err["sorted_segment_sum"] = float((got - want).abs().max())
+    _check(err["sorted_segment_sum"] <= 1e-12 * float(want.abs().max()),
+           f"segment sum vs plain: {err['sorted_segment_sum']}")
+    n_rows = plan.order.numel()
+    ms["sorted_segment_sum"] = ms_of(seg_sum)
+    plain_ms["sorted_segment_sum"] = ms_of(seg_plain)
+    library_ms["sorted_segment_sum"] = ms_of(seg_lib)
+    # blocks, order and ids read; the stencil written; one add per element
+    bound["sorted_segment_sum"] = _bound(
+        flat.numel() * 8 + 2 * n_rows * 8 + n_seg * 9 * 8, flat.numel())
+    _say("9-segment-sum", dtype="f64", rows=n_rows, cols=9, segments=n_seg,
+         bitwise_repeatable=True, equals_host_cpu=True,
+         max_abs_err_vs_index_add=f"{err['sorted_segment_sum']:.3g}",
+         kernel_ms=f"{ms['sorted_segment_sum']:.4f}",
+         plain_ms=f"{plain_ms['sorted_segment_sum']:.4f}",
+         index_add_ms=f"{library_ms['sorted_segment_sum']:.4f}",
+         bound_ms=f"{bound['sorted_segment_sum'][0]:.4f}")
+    del m32, m64, ops, flat
 
     # ---- 10: DeePMD se_e2_a water at the flagship width -----------------
     _deepmd_water(dev)
 
+    # ---- 11: the per-matrix static kernels at the stencil of phase 3 -----
+    _static_kernels(dev, ws3, x_pad3, A_p, err, ms, plain_ms, library_ms,
+                    bound, launches, ms_of, flush_l2)
+    del ws3, x_pad3, A_p
+
     sources = {"permute_gather": "g4s_tpu_torch/csrc/permute.cu",
                "wsell_spmv": "g4s_tpu_torch/csrc/wsell_spmv.cu",
-               "bwell_spmv": "g4s_tpu_torch/csrc/bwell_spmv.cu"}
+               "bwell_spmv": "g4s_tpu_torch/csrc/bwell_spmv.cu",
+               "sorted_segment_sum": "g4s_tpu_torch/csrc/segment_sum.cu",
+               # CUDA generated per matrix by this module
+               "static_spmv_chain": "g4s_tpu_torch/ops/static_spmv.py",
+               "static_spmv_one": "g4s_tpu_torch/ops/static_spmv.py"}
     replaces = {
         "permute_gather": "g4s_tpu/ops/route.py:417 (_lane_benes_kernel) "
                           "+ g4s_tpu/ops/route.py:438 (_mid_kernel)",
         "wsell_spmv": "g4s_tpu/ops/pallas_spmv.py:491 (_wsell_kernel)",
-        "bwell_spmv": "g4s_tpu/ops/pallas_spmv.py:178 (_kernel)"}
+        "bwell_spmv": "g4s_tpu/ops/pallas_spmv.py:178 (_kernel)",
+        "sorted_segment_sum": "g4s_tpu/ops/segment.py:23 (jax.ops."
+                              "segment_sum(indices_are_sorted=True); XLA, "
+                              "no Pallas kernel)",
+        "static_spmv_chain": "benchmarks/static_spmv_probe.py:42 "
+                             "(_static_kernel)",
+        "static_spmv_one": "benchmarks/static_spmv_probe2.py:42 "
+                           "(build_static_one_kernel)"}
     ms["bwell_spmv"] = bw["pack"]["ms"]
     plain_ms["bwell_spmv"] = bw["pack"]["plain_ms"]
     library_ms["bwell_spmv"] = bw["pack"]["library_ms"]
@@ -1313,7 +1512,7 @@ def main() -> int:
          "max_abs_err": err[k], "ms": ms[k], "plain_ms": plain_ms[k],
          "bound_ms": bound[k][0], "bound_by": bound[k][1],
          "library_ms": library_ms[k]}
-        for k in ("permute_gather", "wsell_spmv", "bwell_spmv")]
+        for k in sources]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

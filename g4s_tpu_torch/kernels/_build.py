@@ -8,6 +8,10 @@ loaded as built. The sources expose a plain C interface (no PyTorch
 headers), so the build takes seconds. Every C entry point returns the
 launch's `cudaGetLastError()`; the wrappers raise when it is not 0.
 
+`build_generated` builds one generated source (a kernel specialised to
+one matrix, ops/static_spmv.py) into a library of its own, keyed the same
+way by its text and the flags.
+
 Nothing here falls back: a missing nvcc or a failed build raises.
 """
 
@@ -20,6 +24,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -39,6 +44,8 @@ SIGNATURES = {
     "g4s_wsell_spmv_f32": (_P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _INT,
                            _P),
     "g4s_bwell_spmv_f32": (_P, _P, _P, _P, _P, _I64, _INT, _INT, _INT, _P),
+    "g4s_sorted_segment_sum_f32": (_P, _P, _P, _I64, _I64, _P, _I64, _P),
+    "g4s_sorted_segment_sum_f64": (_P, _P, _P, _I64, _I64, _P, _I64, _P),
 }
 
 
@@ -105,6 +112,34 @@ def build() -> tuple[Path, str]:
         # atomic rename: a concurrent build never loads a partial file
         os.replace(lib, out)
     return out, log + proc.stdout + proc.stderr
+
+
+def build_generated(name: str, source: str) -> tuple[ctypes.CDLL, float]:
+    """Compile a generated CUDA source, with the same flags, into
+    `_build/lib<name>_<hash>.so` (the hash covers the source and the flags)
+    unless that library exists, and load it. Returns the library and
+    nvcc's wall seconds (0.0 when it was already built)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(source.encode())
+    out = BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    seconds = 0.0
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            src = Path(tmp) / f"{name}.cu"
+            src.write_text(source)
+            lib = Path(tmp) / out.name
+            cmd = [nvcc(), *NVCC_FLAGS, "-shared", "-o", str(lib), str(src)]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            seconds = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}) on the "
+                                   f"generated {name}.cu: {' '.join(cmd)}\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            # atomic rename: a concurrent build never loads a partial file
+            os.replace(lib, out)
+    return ctypes.CDLL(str(out)), seconds
 
 
 @functools.cache

@@ -46,7 +46,8 @@ class ScatterPlan:
     def scatter(self, contrib):
         """contrib: (nel, 8, ...) -> (nno, ...) additive assembly."""
         flat = contrib.reshape((-1,) + tuple(contrib.shape[2:]))
-        return sorted_segment_sum(flat[self.order], self.seg_ids, self.nno)
+        return sorted_segment_sum(flat, self.seg_ids, self.nno,
+                                  order=self.order)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -37,7 +37,7 @@ from g4s_tpu_torch.models.citcoms.shapes import FEMGeometry, build_geometry
 from g4s_tpu_torch.models.citcoms.viscosity import (element_materials,
                                                     strain_rate_2inv,
                                                     viscosity_at_vpts)
-from g4s_tpu_torch.ops.segment import segment_sum
+from g4s_tpu_torch.ops.segment import sorted_segment_sum
 from g4s_tpu_torch.sparse.containers import resolve_device
 
 # CitcomS's two stiffness-matvec forms, registered with the engine's
@@ -117,7 +117,13 @@ class CitcomModel:
         self.adv_geo = adv_mod.build_advection_geometry(g, m, self.tmass)
         # per-layer surface-area weights for horizontal averaging
         self._layer_weights = to(self._build_layer_weights())
-        self._layer = torch.arange(m.nno, device=dev) % cfg.nodez
+        layer = np.arange(m.nno) % cfg.nodez
+        self._layer = torch.from_numpy(layer).to(dev)
+        # the layer sums run sorted by layer, each layer in node order, as
+        # ScatterPlan sums nodes: a fixed order of addition on the card
+        layer_order = np.argsort(layer, kind="stable")
+        self._layer_order = torch.from_numpy(layer_order).to(dev)
+        self._layer_sorted = torch.from_numpy(layer[layer_order]).to(dev)
         self.stencil_plan = StencilPlan.build(cfg, dev)
         self.uzawa_params = sol.UzawaParams(
             cfg.accuracy, cfg.inner_accuracy_scale, cfg.piterations,
@@ -162,8 +168,11 @@ class CitcomModel:
         (get_buoyancy, Pan_problem_misc_functions.c:151-235)."""
         buoy = self.cfg.rayleigh * T
         noz = self.cfg.nodez
-        wsum = segment_sum(self._layer_weights, self._layer, noz)
-        bsum = segment_sum(buoy * self._layer_weights, self._layer, noz)
+        wsum = sorted_segment_sum(self._layer_weights, self._layer_sorted,
+                                  noz, order=self._layer_order)
+        bsum = sorted_segment_sum(buoy * self._layer_weights,
+                                  self._layer_sorted, noz,
+                                  order=self._layer_order)
         return buoy - (bsum / wsum)[self._layer]
 
     def _build_ops(self, T, V=None) -> asm.StokesOperators:

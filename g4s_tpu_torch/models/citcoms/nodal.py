@@ -89,7 +89,7 @@ def build_stencil(elt_k, plan: StencilPlan) -> Stencil:
     nel = elt_k.shape[0]
     blocks = elt_k.reshape(nel, 8, 3, 8, 3).permute(0, 1, 3, 2, 4)
     flat = blocks.reshape(nel * 64, 9)
-    W = sorted_segment_sum(flat[plan.order], plan.seg_ids, nno * 27)
+    W = sorted_segment_sum(flat, plan.seg_ids, nno * 27, order=plan.order)
     W = W.reshape(nno, 27, 3, 3).permute(0, 2, 1, 3).reshape(nno, 3, 81)
     return Stencil(W, plan.nbr)
 

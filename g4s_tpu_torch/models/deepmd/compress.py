@@ -14,10 +14,13 @@ the second derivatives are noisy at the 1e-3 level. Evaluation is a gather
 of the interval's 6 coefficient rows + Horner over all (atom, neighbor)
 pairs.
 
-The port's artifact (save_compressed / load_compressed) is a pickle of
-numpy arrays and the spec. The reference's pickle holds jax.Arrays, so the
-two packages' compressed artifacts do not load in each other; the frozen
-.npz they are built from does.
+The port's artifact (save_compressed) is a pickle of numpy arrays and the
+spec. load_compressed reads it and the reference's `dp compress` artifact,
+whose pickle holds jax.Arrays and the reference's NamedTuples: a restricted
+unpickler rebuilds each jax.Array as the numpy array it pickled (jax's
+reconstructor wraps numpy's own) and each reference class as the port's,
+without importing jax, and refuses every other global. The reference does
+not read the port's artifact; the frozen .npz loads both ways.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from g4s_tpu_torch.models.deepmd.descriptor import env_mat, normalize_env_mat
+from g4s_tpu_torch.models.deepmd.descriptor import (DescriptorSpec, env_mat,
+                                                    normalize_env_mat)
 from g4s_tpu_torch.models.deepmd.freeze import (params_from_numpy,
                                                 params_to_numpy)
 from g4s_tpu_torch.models.deepmd.model import (ModelSpec, _select_by_type,
@@ -186,11 +190,45 @@ def save_compressed(cm: CompressedModel, path) -> None:
                      "spec": cm.spec}, f)
 
 
+def _numpy_from_jax(fun, args, arr_state, aval_state):
+    """What jax._src.array._reconstruct_array does, short of the device
+    put: numpy's reconstructor and the array's state."""
+    a = fun(*args)
+    a.__setstate__(arr_state)
+    return a
+
+
+# the globals a compressed artifact may name: numpy's array machinery, jax's
+# array reconstructor, and the model's NamedTuples of either package
+_ALLOWED = {
+    ("jax._src.array", "_reconstruct_array"): _numpy_from_jax,
+    **{(f"{pkg}.models.deepmd.{mod}", cls.__name__): cls
+       for pkg in ("g4s_tpu", "g4s_tpu_torch")
+       for mod, cls in (("compress", EmbeddingTable), ("model", ModelSpec),
+                        ("descriptor", DescriptorSpec))}}
+_NUMPY = {("numpy", "ndarray"), ("numpy", "dtype"),
+          ("numpy._core.multiarray", "_reconstruct"),
+          ("numpy.core.multiarray", "_reconstruct"),
+          ("numpy._core.multiarray", "scalar"),
+          ("numpy.core.multiarray", "scalar")}
+
+
+class _ArtifactUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if (module, name) in _NUMPY:
+            return super().find_class(module, name)
+        if (module, name) in _ALLOWED:
+            return _ALLOWED[module, name]
+        raise pickle.UnpicklingError(
+            f"compressed artifact: global {module}.{name} is not allowed")
+
+
 def load_compressed(path, *, device="cuda") -> CompressedModel:
-    """Load an artifact written by save_compressed (a pickle: load only
-    files this program wrote) onto `device`."""
+    """Load a `dp compress` artifact, the port's or the reference's, onto
+    `device`. Only numpy arrays and the model's own NamedTuples are
+    rebuilt; any other object in the pickle raises."""
     with open(path, "rb") as f:
-        d = pickle.load(f)
+        d = _ArtifactUnpickler(f).load()
     params = params_from_numpy(d["params"], device=device)
     dev = params["stats"]["davg"].device
     tables = tuple(tuple(

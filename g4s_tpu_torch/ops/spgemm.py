@@ -124,18 +124,16 @@ def _sort_merge_compact(key: torch.Tensor, val: torch.Tensor):
     Output contract (the reference's): keys sorted ascending over
     [0, nnz), -1 beyond; merged values over [0, nnz), 0 beyond; nnz as a
     0-d tensor. The reference merges with a Hillis-Steele scan because TPU
-    scatters are slow; here each run's entries scatter-add into the run's
-    slot, so sums agree up to addition order."""
+    scatters are slow; here each run is summed in index order by
+    sorted_segment_sum, so sums agree up to addition order."""
     F = key.shape[0]
     key_s, order = torch.sort(key, stable=True)
-    val_s = val[order]
     head = torch.ones(F, dtype=torch.bool, device=key.device)
     head[1:] = key_s[1:] != key_s[:-1]
     run = torch.cumsum(head, 0) - 1
     out_key = torch.full((F,), -1, dtype=key.dtype, device=key.device)
     out_key.scatter_(0, run, key_s)          # all writers of a run agree
-    out_val = torch.zeros((F,), dtype=val.dtype, device=val.device)
-    out_val.index_add_(0, run, val_s)
+    out_val = sorted_segment_sum(val, run, F, order=order)
     return out_key, out_val, head.sum()
 
 

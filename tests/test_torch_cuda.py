@@ -13,7 +13,8 @@ import scipy.sparse as sp
 import torch
 
 from g4s_tpu_torch.engine import build_graph, mxv
-from g4s_tpu_torch.ops import bwell_spmv, route, wsell_spmv
+from g4s_tpu_torch.ops import (bwell_spmv, route, segment, static_spmv,
+                               wsell_spmv)
 from g4s_tpu_torch.sparse import CSR
 
 pytestmark = pytest.mark.cuda
@@ -232,3 +233,93 @@ def test_deepmd_energy_force_virial_on_cuda_matches_cpu(cuda):
         for name, g, w in zip("EFW", got, want):
             assert g.is_cuda
             assert (g.cpu() - w).abs().max() <= 1e-10 * w.abs().max(), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_sorted_segment_sum_is_repeatable_and_in_order(cuda, dtype):
+    """About 2^20 values that cancel heavily (each appears with both signs,
+    magnitudes 1e-8..1e8): two kernel calls are bitwise equal, and bitwise
+    equal to the host CPU's index_add_, which adds each segment in index
+    order as the kernel does."""
+    rng = np.random.default_rng(0)
+    n = 1 << 20
+    big = rng.standard_normal(n // 2) * 10.0 ** rng.integers(-8, 9, n // 2)
+    data = torch.from_numpy(np.concatenate([big, -big])[rng.permutation(n)])
+    ids = torch.from_numpy(np.sort(rng.integers(0, 4096, n)))
+    d, i = data.to(cuda, dtype), ids.to(cuda)
+    before = segment.LAUNCHES
+    a = segment.sorted_segment_sum(d, i, 5000)
+    b = segment.sorted_segment_sum(d, i, 5000)
+    assert segment.LAUNCHES == before + 2
+    assert torch.equal(a, b)
+    assert torch.equal(a.cpu(), segment._sorted_segment_sum_plain(
+        d.cpu(), ids, 5000))
+    assert not a[4096:].any()
+
+
+def test_sorted_segment_sum_order_and_trailing_dims(cuda):
+    rng = np.random.default_rng(1)
+    n = 30000
+    data = torch.from_numpy(rng.standard_normal((n, 3, 3)))
+    order = torch.from_numpy(rng.permutation(n))
+    ids = torch.from_numpy(np.sort(rng.integers(0, 2000, n)))
+    got = segment.sorted_segment_sum(data.to(cuda), ids.to(cuda), 2100,
+                                     order=order.to(cuda))
+    want = segment._sorted_segment_sum_plain(data, ids, 2100, order=order)
+    assert torch.equal(got.cpu(), want)
+    empty = segment.sorted_segment_sum(
+        torch.zeros((0, 2), device=cuda, dtype=torch.float64),
+        torch.zeros(0, dtype=torch.int64, device=cuda), 3)
+    assert empty.shape == (3, 2) and not empty.any()
+
+
+def test_sorted_segment_sum_dtype_routing(cuda):
+    """Integer sums keep index_add_ (their order does not matter); f16 and
+    bf16 raise rather than falling back."""
+    ids = torch.tensor([0, 0, 2], device=cuda)
+    before = segment.LAUNCHES
+    got = segment.sorted_segment_sum(torch.tensor([1, 2, 3], device=cuda),
+                                     ids, 3)
+    assert segment.LAUNCHES == before
+    assert got.tolist() == [3, 0, 3]
+    for dt in (torch.float16, torch.bfloat16):
+        with pytest.raises(TypeError):
+            segment.sorted_segment_sum(torch.ones(3, device=cuda, dtype=dt),
+                                       ids, 3)
+
+
+@pytest.mark.parametrize("offs", [[-1, 0, 1, 300, -300],
+                                  list(range(-6, 7)) + [300, -300, 1000]])
+def test_static_kernels_match_plain_and_wsell(cuda, offs):
+    """Both generated forms, and the one kernel capped at 2 tiles, against
+    the plain version within a relative 1e-5 and against the wsell_spmv
+    kernel on the same pack (the same products summed in the same order)."""
+    rng = np.random.default_rng(2)
+    n = 2048
+    a = sp.diags([rng.standard_normal(n - abs(o)) for o in offs], offs,
+                 shape=(n, n), format="csr").astype(np.float32)
+    packed = wsell_spmv.pack_wsell(CSR.from_scipy(a), device=cuda,
+                                   packs_per_tile=4)
+    starts_h, kc_h = static_spmv.static_windows(packed)
+    x_pad = torch.zeros(wsell_spmv._chain_pad(packed), device=cuda)
+    x_pad[:n] = torch.from_numpy(
+        rng.standard_normal(n).astype(np.float32)).to(cuda)
+    y_ws = wsell_spmv.spmv_wsell_chain(packed, x_pad)
+    tiles = packed.lanes.shape[0]
+    for f in (static_spmv.build_static_chain(packed, starts_h, kc_h),
+              static_spmv.build_static_one_kernel(packed, starts_h, kc_h),
+              static_spmv.build_static_one_kernel(packed, starts_h, kc_h,
+                                                  2)):
+        chain0, one0 = static_spmv.CHAIN_LAUNCHES, static_spmv.ONE_LAUNCHES
+        got = f(x_pad)
+        assert (static_spmv.CHAIN_LAUNCHES - chain0,
+                static_spmv.ONE_LAUNCHES - one0) \
+            == ((0, 1) if f.one_kernel else (tiles, 0))
+        want = static_spmv._static_spmv_plain(packed, starts_h, kc_h, x_pad,
+                                              f.n_tiles)
+        assert got.shape == want.shape == (f.n_out,)
+        assert float((got - want).abs().max()) \
+            <= 1e-5 * float(want.abs().max())
+        assert torch.equal(got, y_ws[: f.n_out])
+    with pytest.raises(TypeError):
+        f(x_pad.double())

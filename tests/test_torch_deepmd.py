@@ -15,6 +15,10 @@ tolerances (E 1e-8 relative, F 1e-7 absolute, stride 0.005)."""
 
 import importlib
 import json
+import os
+import pickle
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -35,6 +39,7 @@ P = {m: importlib.import_module(f"g4s_tpu_torch.models.deepmd.{m}")
 dp_cli = importlib.import_module("g4s_tpu_torch.drivers.dp")
 
 F64, F32 = torch.float64, torch.float32
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -295,6 +300,55 @@ def test_compressed_artifact_round_trip(tmp_path):
     e1, f1 = P["compress"].energy_force_compressed(cm, t(c), t(b), t(ty))
     e2, f2 = P["compress"].energy_force_compressed(cm2, t(c), t(b), t(ty))
     assert torch.equal(e1, e2) and torch.equal(f1, f2)
+
+
+_LOAD_WITHOUT_JAX = """
+import sys
+sys.modules["jax"] = None          # any import of jax now fails
+sys.modules["g4s_tpu"] = None
+import numpy as np
+import torch
+from g4s_tpu_torch.models.deepmd.compress import (energy_force_compressed,
+                                                  load_compressed)
+d = sys.argv[1]
+cm = load_compressed(d + "/compressed.pkl", device="cpu")
+fr = np.load(d + "/frame.npz")
+e, f = energy_force_compressed(cm, *(torch.from_numpy(fr[k])
+                                     for k in ("c", "b", "ty")))
+np.savez(d + "/ef.npz", e=e.numpy(), f=f.numpy())
+"""
+
+
+def test_reference_compressed_artifact_loads_without_jax(tmp_path):
+    """The reference's `dp compress` artifact, pickled as
+    g4s_tpu/drivers/dp.py:393 writes it (jax.Arrays of f64 tables and
+    params, the reference's NamedTuples), loads through the port's
+    load_compressed in a process that cannot import jax, and gives the
+    reference's compressed E and F within 1e-10."""
+    js = tiny_spec()
+    c, b, ty = frame("random")
+    jcm, jefc = jax_compressed(0.01)
+    assert jcm.tables[0][0].coeffs.dtype == jnp.float64
+    with open(tmp_path / "compressed.pkl", "wb") as f:
+        pickle.dump({"tables": jcm.tables, "params": jcm.params, "spec": js},
+                    f)
+    np.savez(tmp_path / "frame.npz", c=c, b=b, ty=ty)
+    proc = subprocess.run([sys.executable, "-c", _LOAD_WITHOUT_JAX,
+                           str(tmp_path)], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    got = np.load(tmp_path / "ef.npz")
+    je, jf = jefc(jnp.asarray(c), jnp.asarray(b), jnp.asarray(ty))
+    close(got["e"], je, 1e-10, "compressed E")
+    close(got["f"], jf, 1e-10, "compressed F")
+
+
+def test_load_compressed_refuses_other_globals(tmp_path):
+    path = tmp_path / "evil.pkl"
+    with open(path, "wb") as f:
+        pickle.dump({"tables": (), "params": {}, "spec": os.system}, f)
+    with pytest.raises(pickle.UnpicklingError, match="posix.system"):
+        P["compress"].load_compressed(path, device="cpu")
 
 
 def test_neighbor_stat_matches_reference():
