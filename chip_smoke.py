@@ -65,11 +65,15 @@ Run from the root of a checkout: `python3 chip_smoke.py`. It
      on the card against the host CPU, within 1e-10; in f32 the initial
      solve, one warm-up step and 5 timed steps, vrms, nu_top and dt within
      1e-4 of the blessed values, with wall s/step, inner CG, host syncs,
-     device kernels and device-busy ms (torch.profiler) per step; the
+     device kernels and device-busy ms (torch.profiler) per step, and the
+     segment-sum kernel's launches and share of that busy time; the
      stencil matvec's device time beside its bound and the
      element-by-element form's, the two forms within 1e-5 (f32) and 1e-12
-     (f64) of each other, and the segment-sum kernel at the f64 stencil
-     build's shapes beside its plain version and one index_add_. Of the
+     (f64) of each other, and the segment-sum kernel at every shape the
+     step gives it, in f64 and f32 through the model's int32 plans (the
+     stencil build, an assembly scatter, the buoyancy layer sums): each
+     bitwise repeatable and equal to the host CPU's in-order sum, timed
+     beside its bytes bound, its plain version and one index_add_. Of the
      hand kernels only the segment sum lies on this path (the SpMV
      kernels' launch counts are printed, 0).
  10. DeePMD se_e2_a water at the flagship width (WATER_SPEC: rcut 6,
@@ -94,7 +98,10 @@ Run from the root of a checkout: `python3 chip_smoke.py`. It
      generated for this pack and built by nvcc (wall time printed), against
      its plain version and scipy f64 within a relative 1e-5 and against the
      wsell_spmv kernel (max abs error printed), timed warm and cold beside
-     WSELL's bound, the plain version and cuSPARSE's CSR SpMV.
+     WSELL's bound, the plain version and cuSPARSE's CSR SpMV; for the
+     chain, whose tiles are programmatic dependent launches, how far its
+     63 tile kernels overlap in torch.profiler's trace (the sum of their
+     durations over the span from the first start to the last end).
 
 Device times are medians per call between back-to-back calls queued
 behind a device sleep (g4s_tpu_torch.obs.timings.device_ms); "cold" times
@@ -677,6 +684,40 @@ def _deepmd_water(dev) -> None:
 
 
 
+def _tile_overlap(fn, tiles: int, tries: int = 8) -> float:
+    """How far the chain's tile kernels overlap in one fn() call, as
+    torch.profiler records them: the sum of the `tiles` kernels' durations
+    over the span from the first start to the last end (1.0 or less when
+    they run one after another). The call is queued behind a device sleep,
+    as device_ms queues its calls, so the tiles run as the device takes
+    them and not as the host, slowed by the tracer, enqueues them. The
+    tracer can lose the first activities of a profile, so short sleeps run
+    first, more in each profile taken again (as obs.timings.
+    device_activities runs them), until one holds all the tiles, up to
+    `tries` times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(8 << attempt):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1 << 25)     # ~20 ms: the 63 launches queue
+            fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and "static_tile_" in e.name]
+        if len(spans) == tiles:
+            return sum(t.elapsed_us() for t in spans) / (
+                max(t.end for t in spans) - min(t.start for t in spans))
+    raise RuntimeError(f"torch.profiler recorded {len(spans)} of the "
+                       f"{tiles} tile kernels")
+
+
 def _static_kernels(dev, ws, x_pad, a_p, err, ms, plain_ms, library_ms,
                     bound, launches, ms_of, flush_l2) -> None:
     """Phase 11: both per-matrix WSELL-K kernels (ops/static_spmv.py, the
@@ -742,6 +783,10 @@ def _static_kernels(dev, ws, x_pad, a_p, err, ms, plain_ms, library_ms,
         slots = f.n_tiles * ws.ppt * 1024
         bound[name] = _bound(slots * 6 + f.n_tiles * ws.ppt * ws.k * 4
                              + x_pad.numel() * 4 + f.n_out * 4, 2.0 * slots)
+        extra = {}
+        if not f.one_kernel:
+            overlap = _tile_overlap(lambda: f(x_pad), tiles)
+            extra["profiler_overlap"] = f"{overlap:.3f}"
         _say("11-static", kernel=name, tiles=f"{f.n_tiles}/{tiles}",
              packs=starts_h.shape[0], K=ws.k, kc_mean=f"{kc_h.mean():.3f}",
              nvcc_s=f"{f.nvcc_s:.2f}", build_wall_s=f"{build_s:.2f}",
@@ -753,7 +798,7 @@ def _static_kernels(dev, ws, x_pad, a_p, err, ms, plain_ms, library_ms,
              bound_ms=f"{bound[name][0]:.4f}",
              share_of_bound=f"{bound[name][0] / ms[name]:.3f}",
              plain_ms=f"{plain_ms[name]:.4f}",
-             cusparse_ms=f"{library_ms[name]:.4f}")
+             cusparse_ms=f"{library_ms[name]:.4f}", **extra)
         del a_rows
 
 
@@ -1388,6 +1433,10 @@ def main() -> int:
     # device time they add up to, against the step's wall time above
     step_acts = device_activities(lambda: m32.step(r32["s"]))
     busy_ms = sum(us for _, us in step_acts) / 1e3
+    # the segment sums' part of that step: launches and device time
+    seg_acts = [us for name, us in step_acts
+                if "sorted_segment_sum_kernel" in name]
+    _check(len(seg_acts) > 0, "the profiled step ran no segment-sum kernel")
     _say("9-cookbook2-f32", warmup_steps=1, timed_steps=5, runs=2,
          deterministic=True,
          s_per_step=f"{r32['wall_s']:.4f},{r32b['wall_s']:.4f}",
@@ -1401,7 +1450,10 @@ def main() -> int:
                                  r32["err"].items()}).replace(" ", ""),
          per_step_max_rel_err=",".join(r32["per_step_err"]),
          spmv_kernel_launches_f64_f32=cb_launches,
-         segment_sum_launches_f64_f32=launches["sorted_segment_sum"])
+         segment_sum_launches_f64_f32=launches["sorted_segment_sum"],
+         segment_sum_launches_per_step=len(seg_acts),
+         segment_sum_device_ms_per_step=f"{sum(seg_acts) / 1e3:.4f}",
+         segment_sum_share_of_busy=f"{sum(seg_acts) / 1e3 / busy_ms:.4f}")
     for name, m in (("f32", m32), ("f64", m64)):
         s_ = r32["s"] if name == "f32" else r64["s"]
         ops = m._build_ops(s_.T, s_.V)
@@ -1429,51 +1481,81 @@ def main() -> int:
                  lambda: [stencil() for _ in range(10)])) / 10,
              eltk_device_ms=f"{ms_of(eltk):.4f}",
              cusparse_k_f32_ms=f"{fem_cusparse_ms:.4f}")
-    # the segment-sum kernel at the largest sum of the Cookbook2 step, the
-    # f64 stencil build: the (nel*64, 9) element blocks summed through the
-    # plan's order into nno*27 stencil slots. Bitwise repeatable and equal
-    # to the host CPU's in-order sum; the plain version on the card sums
-    # with index_add_'s atomics, in another order (relative 1e-12). The
-    # library call is one index_add_ of the unsorted blocks (its zero fill
-    # included), the same function
-    plan = m64.stencil_plan
-    ops = m64._build_ops(r64["s"].T, r64["s"].V)
-    flat = ops.elt_k.reshape(-1, 8, 3, 8, 3).permute(0, 1, 3, 2, 4) \
-        .reshape(-1, 9).contiguous()
-    n_seg = m64.mesh.nno * 27
-    seg_sum = lambda: segment.sorted_segment_sum(flat, plan.seg_ids, n_seg,
-                                                 order=plan.order)
-    seg_plain = lambda: segment._sorted_segment_sum_plain(
-        flat, plan.seg_ids, n_seg, order=plan.order)
-    ids_by_row = torch.empty_like(plan.seg_ids)
-    ids_by_row[plan.order] = plan.seg_ids
-    seg_lib = lambda: torch.zeros((n_seg, 9), dtype=flat.dtype,
-                                  device=dev).index_add_(0, ids_by_row, flat)
-    got = seg_sum()
-    _check(torch.equal(got, seg_sum()) and torch.equal(
-        got.cpu(), segment._sorted_segment_sum_plain(
-            flat.cpu(), plan.seg_ids.cpu(), n_seg, order=plan.order.cpu())),
-        "segment sum at the stencil build: not bitwise repeatable or not "
-        "the host CPU's sum")
-    want = seg_plain()
-    err["sorted_segment_sum"] = float((got - want).abs().max())
-    _check(err["sorted_segment_sum"] <= 1e-12 * float(want.abs().max()),
-           f"segment sum vs plain: {err['sorted_segment_sum']}")
-    n_rows = plan.order.numel()
-    ms["sorted_segment_sum"] = ms_of(seg_sum)
-    plain_ms["sorted_segment_sum"] = ms_of(seg_plain)
-    library_ms["sorted_segment_sum"] = ms_of(seg_lib)
-    # blocks, order and ids read; the stencil written; one add per element
-    bound["sorted_segment_sum"] = _bound(
-        flat.numel() * 8 + 2 * n_rows * 8 + n_seg * 9 * 8, flat.numel())
-    _say("9-segment-sum", dtype="f64", rows=n_rows, cols=9, segments=n_seg,
-         bitwise_repeatable=True, equals_host_cpu=True,
-         max_abs_err_vs_index_add=f"{err['sorted_segment_sum']:.3g}",
-         kernel_ms=f"{ms['sorted_segment_sum']:.4f}",
-         plain_ms=f"{plain_ms['sorted_segment_sum']:.4f}",
-         index_add_ms=f"{library_ms['sorted_segment_sum']:.4f}",
-         bound_ms=f"{bound['sorted_segment_sum'][0]:.4f}")
-    del m32, m64, ops, flat
+    # the segment-sum kernel at every shape the Cookbook2 step gives it, in
+    # f64 and f32, through the model's int32 plans: the stencil build (the
+    # (nel*64, 9) element blocks into nno*27 stencil slots), an assembly
+    # scatter (assemble_grad_p: (nel*8, 3) into nno nodes) and the buoyancy
+    # layer sums (nno values into nodez layers, runs of nno/nodez). Each is
+    # bitwise repeatable and equal to the host CPU's in-order sum, and timed
+    # beside its bytes bound, its plain version (gather + index_add_, whose
+    # atomics on the card add in another order: within 1e-12 of the
+    # largest sum in f64, 1e-5 in f32) and one index_add_ of the unsorted
+    # blocks (its zero fill included), the same function. The kernels
+    # line keeps the f64 stencil build
+    rng9 = np.random.default_rng(9)
+    for name, m, s_ in (("f64", m64, r64["s"]), ("f32", m32, r32["s"])):
+        ops = m._build_ops(s_.T, s_.V)
+        p_el = torch.from_numpy(rng9.standard_normal(m.mesh.nel)).to(
+            dev, m.dtype)
+        cases = {
+            "stencil_build": (
+                ops.elt_k.reshape(-1, 8, 3, 8, 3).permute(0, 1, 3, 2, 4)
+                .reshape(-1, 9).contiguous(), m.stencil_plan.seg_ids,
+                m.stencil_plan.order, m.mesh.nno * 27),
+            "assembly_scatter": (
+                (ops.G * p_el[:, None, None]).reshape(-1, 3).contiguous(),
+                m.plan.seg_ids, m.plan.order, m.plan.nno),
+            "layer_sum": (cookbook2.rayleigh * s_.T * m._layer_weights,
+                          m._layer_sorted, m._layer_order, cookbook2.nodez)}
+        for shape, (flat, ids, order, n_seg) in cases.items():
+            seg_sum = lambda: segment.sorted_segment_sum(flat, ids, n_seg,
+                                                         order=order)
+            seg_plain = lambda: segment._sorted_segment_sum_plain(
+                flat, ids, n_seg, order=order)
+            ids_by_row = torch.empty_like(ids)
+            ids_by_row[order] = ids
+            seg_lib = lambda: torch.zeros(
+                (n_seg,) + tuple(flat.shape[1:]), dtype=flat.dtype,
+                device=dev).index_add_(0, ids_by_row, flat)
+            got = seg_sum()
+            _check(torch.equal(got, seg_sum()) and torch.equal(
+                got.cpu(), segment._sorted_segment_sum_plain(
+                    flat.cpu(), ids.cpu(), n_seg, order=order.cpu())),
+                f"segment sum at the {shape} ({name}): not bitwise "
+                "repeatable or not the host CPU's sum")
+            want = seg_plain()
+            e = float((got - want).abs().max())
+            _check(e <= (1e-12 if name == "f64" else REL_TOL)
+                   * float(want.abs().max()),
+                   f"segment sum at the {shape} ({name}) vs plain: {e}")
+            cols = flat[0].numel()
+            r = {"ms": ms_of(seg_sum, reps=50),
+                 "plain_ms": ms_of(seg_plain, reps=50),
+                 "library_ms": ms_of(seg_lib, reps=50),
+                 # blocks, ids and order read as passed; the sums written;
+                 # one add per element
+                 "bound": _bound(flat.numel() * flat.element_size()
+                                 + ids.numel() * ids.element_size()
+                                 + order.numel() * order.element_size()
+                                 + n_seg * cols * flat.element_size(),
+                                 flat.numel())}
+            if (shape, name) == ("stencil_build", "f64"):
+                err["sorted_segment_sum"] = e
+                ms["sorted_segment_sum"] = r["ms"]
+                plain_ms["sorted_segment_sum"] = r["plain_ms"]
+                library_ms["sorted_segment_sum"] = r["library_ms"]
+                bound["sorted_segment_sum"] = r["bound"]
+            _say("9-segment-sum", shape=shape, dtype=name,
+                 rows=order.numel(), cols=cols, segments=n_seg,
+                 index=str(ids.dtype).replace("torch.", ""),
+                 bitwise_repeatable=True, equals_host_cpu=True,
+                 max_abs_err_vs_index_add=f"{e:.3g}",
+                 kernel_ms=f"{r['ms']:.4f}",
+                 plain_ms=f"{r['plain_ms']:.4f}",
+                 index_add_ms=f"{r['library_ms']:.4f}",
+                 bound_ms=f"{r['bound'][0]:.4f}",
+                 share_of_bound=f"{r['bound'][0] / r['ms']:.3f}")
+    del m32, m64, ops, flat, cases
 
     # ---- 10: DeePMD se_e2_a water at the flagship width -----------------
     _deepmd_water(dev)

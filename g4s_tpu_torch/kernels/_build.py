@@ -46,6 +46,8 @@ SIGNATURES = {
     "g4s_bwell_spmv_f32": (_P, _P, _P, _P, _P, _I64, _INT, _INT, _INT, _P),
     "g4s_sorted_segment_sum_f32": (_P, _P, _P, _I64, _I64, _P, _I64, _P),
     "g4s_sorted_segment_sum_f64": (_P, _P, _P, _I64, _I64, _P, _I64, _P),
+    "g4s_sorted_segment_sum_f32_i32": (_P, _P, _P, _I64, _I64, _P, _I64, _P),
+    "g4s_sorted_segment_sum_f64_i32": (_P, _P, _P, _I64, _I64, _P, _I64, _P),
 }
 
 

@@ -31,16 +31,17 @@ class ScatterPlan:
     -> nno nodes, built once so every assembly is one gather and one
     sorted segment sum."""
 
-    order: torch.Tensor     # (nel*8,) permutation sorting slots by node id
-    seg_ids: torch.Tensor   # (nel*8,) node id per sorted slot
+    order: torch.Tensor     # (nel*8,) int32 permutation sorting slots by node
+    seg_ids: torch.Tensor   # (nel*8,) int32 node id per sorted slot
     nno: int
 
     @staticmethod
     def build(ien: np.ndarray, nno: int, device) -> "ScatterPlan":
         flat = np.asarray(ien).ravel()
         order = np.argsort(flat, kind="stable")
-        return ScatterPlan(torch.from_numpy(order).to(device),
-                           torch.from_numpy(flat[order].astype(np.int64))
+        # int32 order and ids: the sum reads half the index bytes
+        return ScatterPlan(torch.from_numpy(order.astype(np.int32)).to(device),
+                           torch.from_numpy(flat[order].astype(np.int32))
                            .to(device), nno)
 
     def scatter(self, contrib):

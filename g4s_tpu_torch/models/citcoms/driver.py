@@ -120,10 +120,13 @@ class CitcomModel:
         layer = np.arange(m.nno) % cfg.nodez
         self._layer = torch.from_numpy(layer).to(dev)
         # the layer sums run sorted by layer, each layer in node order, as
-        # ScatterPlan sums nodes: a fixed order of addition on the card
+        # ScatterPlan sums nodes (int32, as its plan): a fixed order of
+        # addition on the card
         layer_order = np.argsort(layer, kind="stable")
-        self._layer_order = torch.from_numpy(layer_order).to(dev)
-        self._layer_sorted = torch.from_numpy(layer[layer_order]).to(dev)
+        self._layer_order = torch.from_numpy(
+            layer_order.astype(np.int32)).to(dev)
+        self._layer_sorted = torch.from_numpy(
+            layer[layer_order].astype(np.int32)).to(dev)
         self.stencil_plan = StencilPlan.build(cfg, dev)
         self.uzawa_params = sol.UzawaParams(
             cfg.accuracy, cfg.inner_accuracy_scale, cfg.piterations,

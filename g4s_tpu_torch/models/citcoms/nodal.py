@@ -36,7 +36,7 @@ _OFFSETS = [(dy, dx, dz) for dy in (-1, 0, 1) for dx in (-1, 0, 1)
 
 class StencilPlan(NamedTuple):
     order: torch.Tensor     # sorts (nel*64) block contributions by target
-    seg_ids: torch.Tensor   # target = node_flat * 27 + slot
+    seg_ids: torch.Tensor   # target = node_flat * 27 + slot (both int32)
     nbr: torch.Tensor       # (nno, 27) neighbour node per slot; a slot
                             # outside the grid names the node itself (its
                             # block is 0: no element couples the two)
@@ -69,8 +69,10 @@ class StencilPlan(NamedTuple):
         self_flat = np.broadcast_to(np.arange(noy * nox * noz)[:, None],
                                     nb_flat.shape)
         nbr = np.where(inside, nb_flat, self_flat)
-        return StencilPlan(torch.from_numpy(order).to(device),
-                           torch.from_numpy(flat[order]).to(device),
+        # int32 order and ids: the sum reads half the index bytes
+        return StencilPlan(torch.from_numpy(order.astype(np.int32)).to(device),
+                           torch.from_numpy(flat[order].astype(np.int32))
+                           .to(device),
                            torch.from_numpy(nbr).to(device),
                            (noy, nox, noz))
 

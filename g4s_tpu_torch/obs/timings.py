@@ -122,36 +122,46 @@ def device_ms(fn, *, device="cuda", reps: int = 30, warmup: int = 3,
                        "the device")
 
 
-def device_kernels(fn, *, tries: int = 5) -> list:
+def device_kernels(fn, *, tries: int = 10) -> list:
     """Names of the device activities (kernels, copies, fills) of one
     fn() call on the card, in order, as torch.profiler records them."""
     return [name for name, _ in device_activities(fn, tries=tries)]
 
 
-def device_activities(fn, *, tries: int = 5) -> list:
+def device_activities(fn, *, tries: int = 10) -> list:
     """(name, device µs) of each device activity (kernels, copies, fills)
     of one fn() call on the card, in order, as torch.profiler records them.
 
-    The tracer can lose activities at the start of a profile, or all of a
-    profile's: a marker kernel (a device sleep) runs first inside the same
-    profile, and it and anything before it are dropped; a profile that
-    holds nothing after the marker is taken again, up to `tries` times."""
+    The tracer can lose the first activities of a profile, more of them
+    the longer the process has run (on an H100, 1 to 5 or more in the
+    later phases of chip_smoke.py), or all of a profile's. So short device
+    sleeps run before fn inside the same profile, 8 in the first profile
+    and twice as many in each one taken again, and one runs after it; a
+    profile counts only when fn's activities have a sleep before and after
+    them, so that no loss reached them; they are returned without the
+    sleeps. Any other profile is taken again, up to `tries` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(tries):
+    for attempt in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(1000)
+            for _ in range(8 << attempt):
+                torch.cuda._sleep(1000)
             torch.cuda.synchronize()
             fn()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)
             torch.cuda.synchronize()
         events = sorted((e for e in prof.events()
                          if e.device_type == DeviceType.CUDA),
                         key=lambda e: e.time_range.start)
         marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
-        events = events[marks[-1] + 1:] if marks else events
-        if events:
-            return [(e.name, e.time_range.elapsed_us()) for e in events]
+        body = [i for i, e in enumerate(events)
+                if "spin_kernel" not in e.name]
+        if body and marks and marks[0] < body[0] and marks[-1] > body[-1]:
+            return [(events[i].name, events[i].time_range.elapsed_us())
+                    for i in body]
     raise RuntimeError(f"torch.profiler recorded no device activity of fn "
-                       f"in {tries} profiles")
+                       f"in {tries} profiles (the last: {len(events)} "
+                       f"device activities, {len(marks)} of them markers)")

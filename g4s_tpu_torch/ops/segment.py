@@ -3,7 +3,9 @@
 `sorted_segment_sum` keeps the reference's sorted-ids contract: on a CUDA
 tensor of f32 or f64 it runs the csrc/segment_sum.cu kernel, which adds
 each segment's run in index order, so every sum is bitwise repeatable and
-equal to the host CPU's `index_add_` (the plain version). Sums over
+equal to the host CPU's `index_add_` (the plain version). The kernel reads
+int32 or int64 ids and order as given (other integer types as int64), so a
+caller that keeps its plan in int32 moves half the index bytes. Sums over
 unsorted ids go through `index_add_`, which adds atomically on CUDA;
 max/min/prod through `scatter_reduce(..., include_self=False)` over an
 output pre-filled with the identity that `jax.ops.segment_{max,min,prod}`
@@ -19,8 +21,11 @@ import torch
 from g4s_tpu_torch.kernels import _build
 
 _REDUCE = {"max": "amax", "min": "amin", "mul": "prod"}
-_KERNELS = {torch.float32: "g4s_sorted_segment_sum_f32",
-            torch.float64: "g4s_sorted_segment_sum_f64"}
+_KERNELS = {(torch.float32, torch.int64): "g4s_sorted_segment_sum_f32",
+            (torch.float64, torch.int64): "g4s_sorted_segment_sum_f64",
+            (torch.float32, torch.int32): "g4s_sorted_segment_sum_f32_i32",
+            (torch.float64, torch.int32): "g4s_sorted_segment_sum_f64_i32"}
+_INT32_MAX = 2**31 - 1
 
 # launches of the segment_sum kernel (CUDA tensors only)
 LAUNCHES = 0
@@ -65,7 +70,7 @@ def sorted_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     if not (data.dtype.is_floating_point or data.dtype.is_complex):
         return _sorted_segment_sum_plain(data, segment_ids, num_segments,
                                          order)
-    if data.dtype not in _KERNELS:
+    if data.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"sorted_segment_sum: the kernel takes f32 and f64, "
                         f"not {data.dtype}")
     n = data.shape[0] if order is None else order.shape[0]
@@ -73,15 +78,16 @@ def sorted_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
         raise ValueError(f"sorted_segment_sum: {n} rows to sum, ids of "
                          f"shape {tuple(segment_ids.shape)}")
     data = data.contiguous()
-    ids = segment_ids.to(device=data.device, dtype=torch.int64).contiguous()
+    index = _index_dtype(segment_ids, max(n, data.shape[0]), num_segments)
+    ids = segment_ids.to(device=data.device, dtype=index).contiguous()
     if order is not None:
-        order = order.to(device=data.device, dtype=torch.int64).contiguous()
+        order = order.to(device=data.device, dtype=index).contiguous()
     d = math.prod(data.shape[1:])
     out = torch.empty((num_segments,) + tuple(data.shape[1:]),
                       dtype=data.dtype, device=data.device)
     if out.numel() == 0:
         return out
-    name = _KERNELS[data.dtype]
+    name = _KERNELS[data.dtype, index]
     lib = _build.load()
     with torch.cuda.device(data.device):
         rc = getattr(lib, name)(
@@ -92,6 +98,15 @@ def sorted_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     LAUNCHES += 1
     _build.check(rc, name)
     return out
+
+
+def _index_dtype(segment_ids, rows: int, num_segments: int) -> torch.dtype:
+    """The kernel's id and order type: int32 where the ids come as int32
+    and every row index and segment fits below 2^31 - 1, else int64."""
+    if segment_ids.dtype == torch.int32 and max(rows, num_segments) \
+            < _INT32_MAX:
+        return torch.int32
+    return torch.int64
 
 
 def _identity(op: str, dtype: torch.dtype):

@@ -15,7 +15,14 @@ Two forms, as the reference's two probes:
 
 - `build_static_chain`: one kernel per tile, each holding only its tile's
   constants, launched one after another (probe 1, one pallas_call per
-  tile);
+  tile). The tiles write disjoint rows of y and only read x, so each
+  launch after the first is a programmatic dependent launch (Hopper): a
+  tile's grid starts as soon as every block of the tile before it has
+  started, and each tile finishes only after the one before it
+  (`griddepcontrol.wait` after its rows are written), so the tiles
+  overlap on the device and the op after the last one still sees all of
+  y. 128-thread blocks give each tile 128 blocks, so the overlapping
+  tiles spread over all the SMs;
 - `build_static_one_kernel`: one kernel over the first `n_tiles` tiles,
   every tile's constants in one program (probe 2, one pallas_call). The
   probe stages x in VMEM and double-buffers lanes and values by DMA; x
@@ -44,7 +51,9 @@ from g4s_tpu_torch.sparse.containers import resolve_device
 CHAIN_LAUNCHES = 0
 ONE_LAUNCHES = 0
 
-_THREADS = 256
+# threads per block: the chain's tiles overlap, each with 128 blocks
+_CHAIN_THREADS = 128
+_ONE_THREADS = 256
 
 
 def static_windows(packed: WSELL):
@@ -176,38 +185,54 @@ _CHAIN = """
 __global__ void __launch_bounds__(THREADS) static_tile_{t}(
     const int16_t* __restrict__ lanes, const float* __restrict__ vals,
     const float* __restrict__ x, float* __restrict__ y, long long end) {{
+  // cudaTriggerProgrammaticLaunchCompletion(): the next tile may start
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
   const long long r = {t}LL * ROWS_PER_TILE
       + (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (r >= end) return;
-  float acc = 0.f;
-  if (r < {t1}LL * ROWS_PER_TILE) {{
-    int b[K];
-    const int q = (int)((r - {t}LL * ROWS_PER_TILE) / RPP);
-    acc = pack_dot(windows_{t}(q, b), b, r, lanes, vals, x);
+  if (r < end) {{
+    float acc = 0.f;
+    if (r < {t1}LL * ROWS_PER_TILE) {{
+      int b[K];
+      const int q = (int)((r - {t}LL * ROWS_PER_TILE) / RPP);
+      acc = pack_dot(windows_{t}(q, b), b, r, lanes, vals, x);
+    }}
+    y[r] = acc;
   }}
-  y[r] = acc;
+  // cudaGridDependencySynchronize(): finish after the tile before
+  asm volatile("griddepcontrol.wait;" ::: "memory");
 }}
 """
 
 _CHAIN_ENTRY = """
 }}  // namespace
 
-// one launch per tile, in order; the last also writes the zero tail
+// one launch per tile, in order; the last also writes the zero tail. The
+// first tile waits for the stream's earlier work as any launch does; each
+// later one is a programmatic dependent launch of the tile before it
 extern "C" int g4s_static_spmv(const void* lanes, const void* vals,
                                const void* x, void* y, void* stream) {{
   const int16_t* l = (const int16_t*)lanes;
   const float* v = (const float*)vals;
   const float* xx = (const float*)x;
   float* yy = (float*)y;
-  cudaStream_t st = (cudaStream_t)stream;
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {{}};
+  cfg.blockDim = dim3(THREADS);
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = pdl;
 {launches}
   return (int)cudaSuccess;
 }}
 """
 
 _CHAIN_LAUNCH = """\
-  static_tile_{t}<<<{blocks}, THREADS, 0, st>>>(l, v, xx, yy, {end}LL);
-  if (cudaError_t e = cudaGetLastError()) return (int)e;"""
+  cfg.gridDim = dim3({blocks});
+  cfg.numAttrs = {pdl};
+  if (cudaError_t e = cudaLaunchKernelEx(&cfg, static_tile_{t}, l, v, xx, yy,
+                                         {end}LL))
+    return (int)e;"""
 
 _ONE = """
 constexpr int N_TILES = {n_tiles};
@@ -262,9 +287,10 @@ def generate_static_source(packed: WSELL, starts_h, kc_h, *,
     kc_cases = "\n".join(
         f"    case {kc}: return row_dot<{kc}>(b, r, lanes, vals, x);"
         for kc in range(1, packed.k + 1))
+    threads = _ONE_THREADS if one_kernel else _CHAIN_THREADS
     parts = [_HEADER.format(width=packed.width, k=packed.k, rpp=rpp,
                             rows_per_tile=rows_per_tile,
-                            threads=_THREADS, kc_cases=kc_cases)]
+                            threads=threads, kc_cases=kc_cases)]
     for t in range(nt):
         cases = []
         for q in range(ppt):
@@ -282,15 +308,15 @@ def generate_static_source(packed: WSELL, starts_h, kc_h, *,
             for t in range(nt))
         parts.append(_ONE.format(n_tiles=nt, end=end_all,
                                  tile_cases=tile_cases,
-                                 blocks=-(-end_all // _THREADS)))
+                                 blocks=-(-end_all // threads)))
     else:
         launches = []
         for t in range(nt):
             parts.append(_CHAIN.format(t=t, t1=t + 1))
             end = end_all if t == nt - 1 else (t + 1) * rows_per_tile
             launches.append(_CHAIN_LAUNCH.format(
-                t=t, end=end,
-                blocks=-(-(end - t * rows_per_tile) // _THREADS)))
+                t=t, end=end, pdl=int(t > 0),
+                blocks=-(-(end - t * rows_per_tile) // threads)))
         parts.append(_CHAIN_ENTRY.format(launches="\n".join(launches)))
     return "".join(parts)
 

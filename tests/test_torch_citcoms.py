@@ -30,6 +30,7 @@ from g4s_tpu_torch.models.citcoms import (CitcomModel, advection, assembly,
                                           config, nodal, observables,
                                           solvers, state_from_numpy,
                                           viscosity)
+from g4s_tpu_torch.ops import segment
 from test_citcoms import COOKBOOK2_SNIPPET, small_cfg
 
 COOKBOOK2_CFG = (Path(__file__).resolve().parents[1] / "g4s_tpu_torch"
@@ -476,6 +477,25 @@ def test_unported_run_options_raise():
             pm.run(1, **kw)
     with pytest.raises(NotImplementedError, match="tracers"):
         pm.step_tracers(pm.init_state(), None, None)
+
+
+def test_sum_plans_are_int32():
+    """The model's three sorted-sum plans (the stencil build, ScatterPlan
+    and the layer order) hold int32 ids and order, which the card's kernel
+    reads as they are; on the CPU they sum bitwise as their int64 copies."""
+    _, pm = models()
+    nel, nno = pm.mesh.nel, pm.mesh.nno
+    rng = np.random.default_rng(6)
+    for ids, order, num, shape in (
+            (pm.stencil_plan.seg_ids, pm.stencil_plan.order, nno * 27,
+             (nel * 64, 9)),
+            (pm.plan.seg_ids, pm.plan.order, nno, (nel * 8, 3)),
+            (pm._layer_sorted, pm._layer_order, pm.cfg.nodez, (nno,))):
+        assert ids.dtype == order.dtype == torch.int32
+        data = torch.from_numpy(rng.standard_normal(shape))
+        got = segment.sorted_segment_sum(data, ids, num, order=order)
+        assert torch.equal(got, segment.sorted_segment_sum(
+            data, ids.long(), num, order=order.long()))
 
 
 def test_model_defaults_to_cuda():

@@ -288,6 +288,99 @@ def test_sorted_segment_sum_dtype_routing(cuda):
                                        ids, 3)
 
 
+def _runs_case(seed: int):
+    """Sorted ids whose runs are 1, 8, 1,089 and 5,000 rows long and cross
+    the kernel's 32-row lookahead, its block rows and its 256- to
+    2,048-row chunks (31-33, 224-225, 256-257, 1,023-1,025, 2,049 rows),
+    between runs of 1-8: ids below 0 first and at or past num_segments
+    last (dropped), empty segments at both ends and between runs. Returns
+    (ids, S)."""
+    rng = np.random.default_rng(seed)
+    lengths = [1, 8, 1089, 5000, 31, 32, 33, 224, 225, 256, 257, 1023,
+               1024, 1025, 2049]
+    lengths += list(rng.integers(1, 9, 400))
+    rng.shuffle(lengths)
+    gaps = rng.integers(1, 3, len(lengths))
+    ids = np.concatenate([np.full(3, -2), np.full(2, -1)]
+                         + [np.full(n, s) for n, s in
+                            zip(lengths, 3 + np.cumsum(gaps))])
+    top = int(ids[-1]) + 1
+    ids = np.concatenate([ids, np.full(4, top + 2), np.full(3, top + 9)])
+    return ids, top + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("index", [torch.int32, torch.int64])
+@pytest.mark.parametrize("d", [1, 9, 20])
+def test_sorted_segment_sum_runs_and_edges(cuda, dtype, index, d):
+    """Runs of 1 to 5,000 rows across the kernel's block and chunk
+    boundaries, empty segments at both ends, dropped ids, with and without
+    `order`, 1 to 20 columns (two column tiles at 20), int32 and int64 ids:
+    two calls bitwise equal, and bitwise equal to the host CPU's in-order
+    sum of the rows whose ids are kept (index_add_ refuses the others)."""
+    ids_np, num = _runs_case(d)
+    n = ids_np.size
+    rng = np.random.default_rng(d + 1)
+    data = torch.from_numpy(rng.standard_normal((n, d)) * 10.0
+                            ** rng.integers(-8, 9, (n, d)))
+    if d == 1:
+        data = data[:, 0].contiguous()
+    order = torch.from_numpy(rng.permutation(n))
+    ids = torch.from_numpy(ids_np)
+    keep = (ids >= 0) & (ids < num)
+    for o in (None, order):
+        rows = data if o is None else data[o]
+        want = segment._sorted_segment_sum_plain(
+            rows[keep].to(dtype), ids[keep], num)
+        args = (data.to(cuda, dtype), ids.to(cuda, index), num)
+        kw = {} if o is None else {"order": o.to(cuda, index)}
+        before = segment.LAUNCHES
+        a = segment.sorted_segment_sum(*args, **kw)
+        b = segment.sorted_segment_sum(*args, **kw)
+        assert segment.LAUNCHES == before + 2
+        assert torch.equal(a, b) and torch.equal(a.cpu(), want)
+        assert not a[:3].any() and not a[-2:].any()
+
+
+def test_sorted_segment_sum_citcoms_plans(cuda):
+    """The three sorted sums of the CitcomS step, through the model's own
+    int32 plans at 9x9x5: the stencil build (f64 and f32 element blocks
+    into nno*27 slots), an assembly scatter (ScatterPlan, 3 columns) and
+    the buoyancy layer sums (runs of 81 nodes): bitwise equal to the host
+    CPU's in-order sums and between two calls."""
+    from g4s_tpu_torch.models.citcoms import (CitcomConfig, CitcomModel,
+                                              nodal)
+    cfg = CitcomConfig(nodex=9, nodey=9, nodez=5, theta_min=0.7854,
+                       theta_max=1.5708, fi_min=0.0, fi_max=0.7854,
+                       num_mat=4, rayleigh=1e5)
+    rng = np.random.default_rng(4)
+    for dtype in (torch.float64, torch.float32):
+        m = CitcomModel(cfg, dtype=dtype, device=cuda)
+        sp_, sc = m.stencil_plan, m.plan
+        assert {sp_.order.dtype, sp_.seg_ids.dtype, sc.order.dtype,
+                sc.seg_ids.dtype, m._layer_order.dtype,
+                m._layer_sorted.dtype} == {torch.int32}
+        nel, nno = m.mesh.nel, m.mesh.nno
+        cases = [
+            (torch.from_numpy(rng.standard_normal((nel * 64, 9))),
+             sp_.seg_ids, sp_.order, nno * 27),
+            (torch.from_numpy(rng.standard_normal((nel * 8, 3))),
+             sc.seg_ids, sc.order, nno),
+            (torch.from_numpy(rng.standard_normal(nno)),
+             m._layer_sorted, m._layer_order, cfg.nodez)]
+        for data, ids, order, num in cases:
+            x = data.to(cuda, dtype)
+            a = segment.sorted_segment_sum(x, ids, num, order=order)
+            b = segment.sorted_segment_sum(x, ids, num, order=order)
+            want = segment._sorted_segment_sum_plain(
+                data.to(dtype), ids.cpu(), num, order=order.cpu())
+            assert torch.equal(a, b) and torch.equal(a.cpu(), want)
+        st = nodal.build_stencil(
+            m._build_ops(m.init_state().T).elt_k, sp_)
+        assert st.W.device.type == cuda.type
+        assert bool(torch.isfinite(st.W).all())
+
+
 @pytest.mark.parametrize("offs", [[-1, 0, 1, 300, -300],
                                   list(range(-6, 7)) + [300, -300, 1000]])
 def test_static_kernels_match_plain_and_wsell(cuda, offs):

@@ -70,18 +70,26 @@ def test_package_imports_no_jax():
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("trail", [(), (3,), (2, 5)])
+@pytest.mark.parametrize("trail", [(), (3,), (2, 5), "layer_sums"])
 def test_sorted_segment_sum_matches_jax(dtype, trail):
     """The plain version against jax.ops.segment_sum(indices_are_sorted=
     True) on sorted ids that leave segments empty (and ids past the last
     row), with trailing dims; the `order` form gathers rows first. Both sum
-    each segment in index order on the CPU: f32 within 1e-6, f64 1e-14."""
+    each segment in index order on the CPU: f32 within 1e-6, f64 1e-14.
+    "layer_sums" is the shape of CitcomS's buoyancy layer sums: 9 runs of
+    1,089 rows, one column, int32 ids."""
     import jax
     import jax.numpy as jnp
-    rng = np.random.default_rng(len(trail))
-    num = 40
-    ids = np.sort(rng.integers(0, num + 5, 300))
-    ids = ids[(ids % 7 != 3) & (ids < num)]
+    layers = trail == "layer_sums"
+    trail = () if layers else trail
+    rng = np.random.default_rng(7 if layers else len(trail))
+    if layers:
+        num = 9
+        ids = np.sort(np.arange(num * 1089) % num).astype(np.int32)
+    else:
+        num = 40
+        ids = np.sort(rng.integers(0, num + 5, 300))
+        ids = ids[(ids % 7 != 3) & (ids < num)]
     data = rng.standard_normal((ids.size,) + trail).astype(dtype)
     want = np.asarray(jax.ops.segment_sum(
         jnp.asarray(data), jnp.asarray(ids), num_segments=num,
@@ -89,7 +97,8 @@ def test_sorted_segment_sum_matches_jax(dtype, trail):
     got = segment.sorted_segment_sum(torch.from_numpy(data),
                                      torch.from_numpy(ids), num)
     assert got.dtype == torch.from_numpy(data).dtype
-    assert got.shape == (num,) + trail and not got[3].any()
+    assert got.shape == (num,) + trail
+    assert layers or not got[3].any()    # segment 3 is left empty
     tol = 1e-6 if dtype == np.float32 else 1e-14
     np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
     perm = rng.permutation(ids.size)
@@ -112,6 +121,18 @@ def test_sorted_segment_sum_of_nothing(dtype):
     want = jax.ops.segment_sum(jnp.zeros((0, 3)), jnp.zeros(0, jnp.int32),
                                num_segments=4, indices_are_sorted=True)
     assert got.shape == want.shape == (4, 3) and not got.any()
+
+
+def test_sorted_segment_sum_index_dtype():
+    """The kernel reads int32 ids and order where the ids come as int32
+    and every row and segment fits below 2^31 - 1; int64 and other integer
+    ids go as int64."""
+    ids32 = torch.zeros(4, dtype=torch.int32)
+    assert segment._index_dtype(ids32, 4, 10) == torch.int32
+    assert segment._index_dtype(ids32, 2**31 - 1, 10) == torch.int64
+    assert segment._index_dtype(ids32, 4, 2**31 - 1) == torch.int64
+    assert segment._index_dtype(ids32.long(), 4, 10) == torch.int64
+    assert segment._index_dtype(ids32.short(), 4, 10) == torch.int64
 
 
 def test_sorted_segment_sum_refuses_other_devices():

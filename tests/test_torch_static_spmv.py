@@ -222,6 +222,41 @@ def test_generated_source_is_a_pure_function_of_the_pack(one_kernel):
                                        else p.lanes.shape[0])
 
 
+_LAUNCH = re.compile(r"cfg\.gridDim = dim3\((\d+)\);\n"
+                     r"  cfg\.numAttrs = (\d);\n"
+                     r"  if \(cudaError_t e = cudaLaunchKernelEx\(&cfg, "
+                     r"static_tile_(\d+),")
+
+
+def test_chain_tiles_are_dependent_launches():
+    """The chain form keeps one kernel per tile, launched in tile order
+    through cudaLaunchKernelEx: the first as any launch (it waits for the
+    stream's earlier work), each later one with programmatic stream
+    serialization, so tiles overlap on the device. Each kernel lets the
+    next tile start on entry and, after writing its rows, waits for the
+    tile before it, so the op after the last tile sees all of y. Blocks of
+    128 threads; the one-kernel form is left as it was."""
+    _, _, p = _packs("stencil_rcm")
+    starts_h, kc_h = port.static_windows(p)
+    src = port.generate_static_source(p, starts_h, kc_h, one_kernel=False)
+    tiles = p.lanes.shape[0]
+    assert src.count("__global__") == tiles and "<<<" not in src
+    assert "constexpr int THREADS = 128;" in src
+    assert "cudaLaunchAttributeProgrammaticStreamSerialization" in src
+    launches = _LAUNCH.findall(src)
+    assert [(int(t), int(a)) for _, a, t in launches] \
+        == [(t, int(t > 0)) for t in range(tiles)]
+    rows = p.ppt * p.rows_per_pack
+    assert all(int(b) == -(-rows // 128) for b, _, _ in launches[:-1])
+    for body in src.split("__global__")[1:]:
+        body = body.split("\n}\n")[0]
+        assert body.index("griddepcontrol.launch_dependents") \
+            < body.index("y[r] = acc;") < body.index("griddepcontrol.wait")
+    one = port.generate_static_source(p, starts_h, kc_h, one_kernel=True)
+    assert "griddepcontrol" not in one and "<<<" in one
+    assert "constexpr int THREADS = 256;" in one
+
+
 def test_capped_source_holds_only_its_tiles():
     _, _, p = _packs("stencil_rcm")
     starts_h, kc_h = port.static_windows(p)
