@@ -102,6 +102,18 @@ Run from the root of a checkout: `python3 chip_smoke.py`. It
      chain, whose tiles are programmatic dependent launches, how far its
      63 tile kernels overlap in torch.profiler's trace (the sum of their
      durations over the span from the first start to the last end).
+ 12. DeePMD training at the flagship width (WATER_SPEC; phase 10's frame
+     and 31 perturbed copies, labels from a teacher model with other
+     random weights): three f64 Trainer steps (the water example's loss
+     and LR; forces through a double backward; optax's Adam by hand), the
+     loss per step and every parameter leaf on the card within 1e-10 of
+     the host CPU; f32 ms/step, device kernels, device-busy ms and idle
+     share per step at 1 frame and 8, beside the dense FLOPs and their
+     bound; then `dp train` through main() for 100 steps on the frames
+     written as a system (lcurve written, last rmse_f below the first),
+     `--restart` from its checkpoint for 5 steps, `dp freeze` and DeepPot
+     on the card within 1e-5 of the trained parameters' f32 energy. No
+     hand kernel lies on this path (launch counts printed, 0).
 
 Device times are medians per call between back-to-back calls queued
 behind a device sleep (g4s_tpu_torch.obs.timings.device_ms); "cold" times
@@ -153,6 +165,12 @@ STATIC_ONE_TILES = None
 DEEPMD_F64_TOL = 1e-10
 DEEPMD_MD_TOL = 1e-9
 DEEPMD_F32_TOL = 1e-4
+# DeePMD training (phase 12): three f64 Trainer steps, the card against the
+# host CPU, the loss per step and every parameter leaf relative to its
+# largest magnitude; the frozen model of a `dp train` run against the
+# trainer's final parameters, f32 energy
+DEEPMD_TRAIN_F64_TOL = 1e-10
+DEEPMD_FREEZE_F32_TOL = 1e-5
 
 
 def _say(phase: str, **kw) -> None:
@@ -682,6 +700,229 @@ def _deepmd_water(dev) -> None:
          bound_by=bound[1],
          hand_kernel_launches=sum(mod.LAUNCHES for mod in launch_mods))
 
+
+
+def _deepmd_train_flops(spec, n_atoms: int, frames: int) -> int:
+    """Dense floating-point operations of one training step on `frames`
+    frames: the eval's (E, F and W, _deepmd_flops) and the backward pass of
+    that whole graph to the parameters, which takes every product of the
+    eval twice more (each matmul x W of the eval needs dx and dW, each
+    contraction both operands' gradients): 3 times the eval's."""
+    return 3 * frames * _deepmd_flops(spec, n_atoms)["total"]
+
+
+def _deepmd_train(dev) -> None:
+    """Phase 12: DeePMD training at the flagship width (WATER_SPEC;
+    __graft_entry__.py's 192-atom water frame and 31 copies perturbed by
+    0.05 A from seed 3; energy and force labels from a teacher model with
+    other random weights; the student's stats and energy bias from the
+    data, as `dp train` computes them). f64: three Trainer steps on the
+    card against the host CPU, the loss per step and every parameter leaf
+    within DEEPMD_TRAIN_F64_TOL. f32: ms/step (median of 10 steps after 3
+    of warm-up, each synchronized), device-busy ms, kernels and idle share
+    per step at 1 frame (the water example's batch_size "auto") and at 8,
+    beside the dense FLOPs and their bound. Then `dp train` through main()
+    on an input at WATER_SPEC width for 100 steps on the frames written to
+    a system directory: the lcurve must be written and its last rmse_f
+    below its first; `dp train --restart` on its checkpoint for 5 steps,
+    whose first rmse_f must be below the first run's; `dp freeze` and
+    DeepPot on the card, whose f32 energy must equal the restarted run's
+    final parameters' within DEEPMD_FREEZE_F32_TOL."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from g4s_tpu_torch.ckpt import tree_leaves
+    from g4s_tpu_torch.drivers import dp as dp_cli
+    from g4s_tpu_torch.models.deepmd import (WATER_SPEC, DeepPot,
+                                             energy_force_virial,
+                                             init_params)
+    from g4s_tpu_torch.models.deepmd.descriptor import (compute_stats,
+                                                        env_mat)
+    from g4s_tpu_torch.models.deepmd.model import params_to
+    from g4s_tpu_torch.models.deepmd.train import (LossConfig, LRConfig,
+                                                   Trainer, batch_to)
+    from g4s_tpu_torch.obs.timings import device_activities
+    from g4s_tpu_torch.ops import bwell_spmv, route, segment, wsell_spmv
+
+    spec = WATER_SPEC
+    cpu = torch.device("cpu")
+    launch_mods = (route, wsell_spmv, bwell_spmv, segment)
+    for mod in launch_mods:
+        mod.LAUNCHES = 0
+    n, L, nf = 192, 12.444661, 32
+    types_np = np.concatenate([np.zeros(64, np.int64),
+                               np.ones(128, np.int64)])
+    coord0 = np.random.default_rng(0).uniform(0, L, size=(n, 3))
+    coords = np.concatenate([coord0[None], coord0[None]
+                             + np.random.default_rng(3).normal(
+                                 scale=0.05, size=(nf - 1, n, 3))])
+    boxes = np.repeat(np.eye(3)[None] * L, nf, axis=0)
+    types_d = torch.as_tensor(types_np, device=dev)
+    teacher = params_to(init_params(torch.Generator().manual_seed(2), spec),
+                        device=dev)
+    e_t, f_t, _ = energy_force_virial(
+        teacher, spec, torch.as_tensor(coords, device=dev),
+        torch.as_tensor(boxes, device=dev), types_d)
+    energy, force = e_t.cpu().numpy(), f_t.cpu().numpy()
+    del teacher, e_t, f_t
+
+    # the student: phase 10's weights, stats and bias from the data
+    R, _ = env_mat(torch.as_tensor(coords[:10], device=dev),
+                   torch.as_tensor(boxes[:10], device=dev), types_d,
+                   spec.descriptor)
+    davg, dstd = compute_stats(list(R.cpu().numpy()), [types_np] * 10, 2,
+                               spec.descriptor.nnei)
+    counts = np.tile(np.bincount(types_np, minlength=2), (nf, 1))
+    bias = np.linalg.lstsq(counts.astype(float), energy, rcond=None)[0]
+    params = init_params(torch.Generator().manual_seed(1), spec,
+                         bias_atom_e=bias)
+    params["stats"]["davg"] = torch.as_tensor(davg)
+    params["stats"]["dstd"] = torch.as_tensor(dstd)
+
+    def raw(first: int, frames: int) -> dict:
+        idx = np.arange(first, first + frames) % nf
+        return dict(coord=coords[idx], box=boxes[idx], energy=energy[idx],
+                    force=force[idx], types=types_np)
+
+    # ---- f64: three steps, the card against the host CPU ----
+    tr = Trainer(spec, LossConfig(), LRConfig())
+    runs = {}
+    for device in (dev, cpu):
+        p = params_to(params, device=device)
+        state = tr.init(p)
+        losses = []
+        t0 = time.perf_counter()
+        for step in range(3):
+            p, state, loss, _ = tr._update(
+                p, state, batch_to(raw(step, 1), tree_leaves(p)[0]), step)
+            losses.append(float(loss))
+        runs[device.type] = (p, losses, time.perf_counter() - t0)
+    (pg, lg, _), (pc, lc, host_s) = runs[dev.type], runs["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    leaf_err = max(_rel_err(g.cpu(), c) for g, c in
+                   zip(tree_leaves(pg), tree_leaves(pc)))
+    _check(loss_err <= DEEPMD_TRAIN_F64_TOL
+           and leaf_err <= DEEPMD_TRAIN_F64_TOL,
+           f"DeePMD train f64, card against host CPU: loss {loss_err}, "
+           f"leaves {leaf_err}")
+    _say("12-deepmd-train-f64", steps=3, frames_per_step=1,
+         loss=",".join(f"{x:.10g}" for x in lg),
+         loss_rel_err=f"{loss_err:.3g}", leaf_rel_err=f"{leaf_err:.3g}",
+         leaves=len(tree_leaves(pg)), tol=DEEPMD_TRAIN_F64_TOL,
+         host_cpu_s_3_steps=f"{host_s:.3f}")
+    del runs, pg, pc
+
+    # ---- f32 step timings ----
+    p32 = params_to(params, device=dev, dtype=torch.float32)
+    n_weights = sum(x.numel() for x in tree_leaves(p32))
+    for frames in (1, 8):
+        batches = [batch_to(raw(i * frames, frames), tree_leaves(p32)[0])
+                   for i in range(4)]
+        p, state = p32, tr.init(p32)
+        step_ms = []
+        for step in range(13):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, state, loss, aux = tr._update(p, state, batches[step % 4],
+                                             step)
+            torch.cuda.synchronize()
+            if step >= 3:
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+        _check(bool(torch.isfinite(loss)), "f32 training loss not finite")
+        acts = device_activities(
+            lambda: tr._update(p, state, batches[0], 13))
+        busy = sum(us for _, us in acts) / 1e3
+        wall = statistics.median(step_ms)
+        flops = _deepmd_train_flops(spec, n, frames)
+        # parameters, mu and nu read and written once; the batch read
+        bound = _bound(4.0 * (6 * n_weights
+                              + frames * (2 * n * 3 + 10)), flops)
+        _say("12-deepmd-train-step-f32", frames=frames,
+             ms_per_step=f"{wall:.4f}",
+             ms_per_step_min_max=f"{min(step_ms):.4f}/"
+                                 f"{max(step_ms):.4f}",
+             device_kernels=len(acts), device_busy_ms=f"{busy:.4f}",
+             device_idle_share=f"{max(0.0, 1 - busy / wall):.3f}",
+             dense_flops=flops, bound_ms=f"{bound[0]:.4f}",
+             bound_by=bound[1], share_of_bound=f"{bound[0] / wall:.4f}",
+             rmse_f=f"{float(aux['rmse_f']):.4g}")
+    del p32, p, state, batches
+
+    # ---- `dp train` through main(), --restart, freeze, DeepPot ----
+    with tempfile.TemporaryDirectory() as tmp:
+        sysd = os.path.join(tmp, "water", "set.000")
+        os.makedirs(sysd)
+        np.savetxt(os.path.join(tmp, "water", "type.raw"), types_np,
+                   fmt="%d")
+        np.save(os.path.join(sysd, "coord.npy"), coords.reshape(nf, -1))
+        np.save(os.path.join(sysd, "box.npy"), boxes.reshape(nf, 9))
+        np.save(os.path.join(sysd, "energy.npy"), energy)
+        np.save(os.path.join(sysd, "force.npy"), force.reshape(nf, -1))
+        lcurve = os.path.join(tmp, "lcurve.out")
+        d = spec.descriptor
+        inp = os.path.join(tmp, "input.json")
+        with open(inp, "w") as f:
+            json.dump({
+                "model": {"type_map": ["O", "H"],
+                          "descriptor": {"type": "se_e2_a", "rcut": d.rcut,
+                                         "rcut_smth": d.rcut_smth,
+                                         "sel": list(d.sel),
+                                         "neuron": list(spec.embed_neurons),
+                                         "axis_neuron": spec.axis_neuron,
+                                         "resnet_dt": False},
+                          "fitting_net": {"neuron": list(spec.fit_neurons),
+                                          "resnet_dt": True}},
+                "learning_rate": {"start_lr": 1e-3, "stop_lr": 1e-5,
+                                  "decay_steps": 20},
+                "loss": {"start_pref_e": 0.02, "limit_pref_e": 1,
+                         "start_pref_f": 1000, "limit_pref_f": 1},
+                "training": {"numb_steps": 100, "disp_freq": 10, "seed": 10,
+                             "disp_file": lcurve,
+                             "training_data": {"systems": ["water"],
+                                               "batch_size": "auto"}}}, f)
+        ck = os.path.join(tmp, "model.ckpt.npz")
+        argv = ["train", inp, "--device", dev.type]
+        t0 = time.perf_counter()
+        dp_cli.main(argv + ["--checkpoint", ck])
+        train_s = time.perf_counter() - t0
+        with open(lcurve) as f:
+            rows = [line.split() for line in f if not line.startswith("#")]
+        rmse_f = [float(r[2]) for r in rows]
+        _check(len(rows) == 11 and rmse_f[-1] < rmse_f[0],
+               f"dp train lcurve: {len(rows)} rows, rmse_f {rmse_f}")
+        ck2 = os.path.join(tmp, "restart.ckpt.npz")
+        out = dp_cli.main(argv + ["--restart", ck, "--steps", "5",
+                                  "--checkpoint", ck2])
+        with open(lcurve) as f:
+            restart_f = [float(line.split()[2]) for line in f
+                         if not line.startswith("#")]
+        _check(restart_f[0] < rmse_f[0],
+               f"dp train --restart did not start from the trained "
+               f"parameters: rmse_f {restart_f[0]} against {rmse_f[0]}")
+        frozen = os.path.join(tmp, "frozen_model.npz")
+        dp_cli.main(["freeze", "-c", ck2, "-o", frozen])
+        pot = DeepPot(frozen, device=dev)
+        e_pot = float(pot.eval(coords[0], boxes[0], types_np)[0])
+        e_tr = float(energy_force_virial(
+            out["params"], out["spec"],
+            torch.as_tensor(coords[0], dtype=torch.float32, device=dev),
+            torch.as_tensor(boxes[0], dtype=torch.float32, device=dev),
+            types_d)[0])
+        frozen_err = abs(e_pot - e_tr) / abs(e_tr)
+        _check(pot.dtype == torch.float32
+               and frozen_err <= DEEPMD_FREEZE_F32_TOL,
+               f"frozen model against the trained parameters (f32): "
+               f"{frozen_err}")
+    _say("12-deepmd-dp-train", steps=100, batch="auto(1)", dtype="f32",
+         wall_s_with_setup=f"{train_s:.2f}",
+         rmse_f_first=f"{rmse_f[0]:.4g}", rmse_f_last=f"{rmse_f[-1]:.4g}",
+         restart_steps=5, restart_rmse_f_first=f"{restart_f[0]:.4g}",
+         frozen_vs_trained_e_rel=f"{frozen_err:.3g}",
+         tol=DEEPMD_FREEZE_F32_TOL,
+         hand_kernel_launches=sum(mod.LAUNCHES for mod in launch_mods))
 
 
 def _tile_overlap(fn, tiles: int, tries: int = 8) -> float:
@@ -1564,6 +1805,9 @@ def main() -> int:
     _static_kernels(dev, ws3, x_pad3, A_p, err, ms, plain_ms, library_ms,
                     bound, launches, ms_of, flush_l2)
     del ws3, x_pad3, A_p
+
+    # ---- 12: DeePMD training at the flagship width ----------------------
+    _deepmd_train(dev)
 
     sources = {"permute_gather": "g4s_tpu_torch/csrc/permute.cu",
                "wsell_spmv": "g4s_tpu_torch/csrc/wsell_spmv.cu",

@@ -9,7 +9,7 @@ Usage: python -m g4s_tpu_torch.drivers.citcoms_regional <configfile>
 
 Output files, checkpoints (and so `--restart`) and the graceful stop on
 SIGINT/SIGTERM, which writes a checkpoint, wait for the port's output and
-checkpoint modules (ROADMAP.md queue 1, items 6 and 10).
+checkpoints (ROADMAP.md queue 1, item 4, "The CitcomS tail").
 """
 
 from __future__ import annotations

@@ -53,7 +53,7 @@ def _not_ported(what: str, where: str):
         f"{what} is not ported to g4s_tpu_torch yet ({where} of ROADMAP.md)")
 
 
-_QUEUE_6 = "queue 1, item 6, second list"
+_QUEUE_TAIL = "queue 1, item 4, \"The CitcomS tail\""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -289,10 +289,10 @@ class CitcomModel:
 
     def step_with_bcs(self, s: State, bcs):
         _not_ported("time-dependent boundary-condition files (bc_files.py)",
-                    _QUEUE_6)
+                    _QUEUE_TAIL)
 
     def step_tracers(self, s: State, pos, flavors):
-        _not_ported("the thermochemical step (tracers.py)", _QUEUE_6)
+        _not_ported("the thermochemical step (tracers.py)", _QUEUE_TAIL)
 
     def run(self, n_steps: Optional[int] = None, *, verbose: bool = False,
             write_output: bool = False, checkpoint: bool = False,
@@ -300,9 +300,9 @@ class CitcomModel:
         """Main loop (bin/Citcom.c:199-281): initial solve, then per step
         advection + Stokes. Returns (state, [StepDiagnostics])."""
         if write_output:
-            _not_ported("output (output.py, vtk.py)", _QUEUE_6)
+            _not_ported("output (output.py, vtk.py)", _QUEUE_TAIL)
         if checkpoint or restart_from:
-            _not_ported("checkpoints (ckpt.py)", "queue 1, item 10")
+            _not_ported("checkpoints (ckpt.save_citcoms)", _QUEUE_TAIL)
         n = self.cfg.maxstep if n_steps is None else n_steps
         s, _ = self.initial_solve(self.init_state())
         history = []
@@ -323,19 +323,19 @@ def _check_ported(cfg: CitcomConfig):
     """Raise for every configuration branch whose modules are not in the
     port yet, so none is silently skipped."""
     if cfg.solver_type == "multigrid":
-        _not_ported("Solver=multigrid (multigrid.py)", _QUEUE_6)
+        _not_ported("Solver=multigrid (multigrid.py)", _QUEUE_TAIL)
     if cfg.lith_age:
-        _not_ported("lith_age (lith_age.py)", _QUEUE_6)
+        _not_ported("lith_age (lith_age.py)", _QUEUE_TAIL)
     if cfg.Ra_410 != 0.0 or cfg.Ra_670 != 0.0 or cfg.Ra_cmb != 0.0:
-        _not_ported("phase changes (phase_change.py)", _QUEUE_6)
+        _not_ported("phase changes (phase_change.py)", _QUEUE_TAIL)
     if cfg.disptn_number != 0.0:
-        _not_ported("the TALA anelastic terms (disptn_number)", _QUEUE_6)
+        _not_ported("the TALA anelastic terms (disptn_number)", _QUEUE_TAIL)
     if cfg.ANIVISC and cfg.ani_vis2_factor != 0.0:
-        _not_ported("anisotropic viscosity (anisotropic.py)", _QUEUE_6)
+        _not_ported("anisotropic viscosity (anisotropic.py)", _QUEUE_TAIL)
     if ((cfg.vbcs_file and cfg.vel_bound_file)
             or (cfg.tbcs_file and cfg.temp_bound_file)):
         _not_ported("time-dependent boundary-condition files (bc_files.py)",
-                    _QUEUE_6)
+                    _QUEUE_TAIL)
 
 
 def state_from_numpy(model: CitcomModel, arrays: Mapping) -> State:

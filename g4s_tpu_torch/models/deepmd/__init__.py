@@ -1,7 +1,10 @@
-"""DeePMD se_e2_a serving path (counterpart of g4s_tpu/models/deepmd):
-descriptor, networks, the energy model with forces and virial, freeze,
-DeepPot inference, NVT MD and model compression. Training (train.py and
-its DDP data parallelism) is not ported yet (ROADMAP.md queue 1, item 8).
+"""DeePMD se_e2_a (counterpart of g4s_tpu/models/deepmd): descriptor,
+networks, the energy model with forces and virial, training (the energy
+Trainer with its hand-written optax-exact Adam, multi-task and
+data-parallel steps; DOS, dipole/polar and spin training), checkpoints
+(g4s_tpu_torch.ckpt), freeze, DeepPot inference, NVT MD and model
+compression. The other descriptors, dplr, calculator, ipi and nvnmd are not
+ported yet (ROADMAP.md queue 1, item 6, "The rest of DeePMD").
 """
 from g4s_tpu_torch.models.deepmd.descriptor import (  # noqa: F401
     DescriptorSpec, env_mat, compute_stats,
@@ -10,6 +13,9 @@ from g4s_tpu_torch.models.deepmd.model import (  # noqa: F401
     ModelSpec, init_params, total_energy, energy_force_virial,
 )
 from g4s_tpu_torch.models.deepmd.data import DataSystem, load_system  # noqa: F401
+from g4s_tpu_torch.models.deepmd.train import (  # noqa: F401
+    Trainer, LossConfig, LRConfig, make_dp_train_step,
+)
 from g4s_tpu_torch.models.deepmd.freeze import (  # noqa: F401
     freeze, load_frozen, params_from_numpy, params_to_numpy,
 )

@@ -12,10 +12,13 @@ The semantics of the reference's native pipeline (deepmd/source/lib/src/
 
 Every function takes one frame, coords (N, 3) and box (3, 3), or a batch
 of frames, coords (B, N, 3) and box (B, 3, 3), sharing one types (N,).
-Forces and virials come from torch.autograd through this whole function.
-The cell-list and non-periodic variants (`env_mat_celllist`,
-`env_mat_nopbc`) and the field descriptor (`atomic_descriptor_ef`) are not
-ported yet (ROADMAP.md queue 1, item 8).
+Forces and virials come from torch.autograd through this whole function,
+and training differentiates it twice (a force loss): every guard keeps the
+unselected branch finite, so second derivatives stay finite at padded
+slots too. `env_mat_nopbc` is the finite-system variant (no minimum
+image, optional real-atom mask). The cell-list variant (`env_mat_celllist`)
+and the field descriptor (`atomic_descriptor_ef`) are not ported yet
+(ROADMAP.md queue 1, item 6, "The rest of DeePMD").
 """
 
 from __future__ import annotations
@@ -77,12 +80,44 @@ def env_mat(coords, box, types, spec: DescriptorSpec, *,
     per-atom unit field, (..., N, 3), while channel 0 keeps 1/r of the
     full distance.
     """
-    n = coords.shape[-2]
     disp = min_image_displacements(coords, box)          # (..., N, N, 3)
+    return _env_sections(disp, types, spec, efield=efield, ef_mode=ef_mode)
+
+
+def env_mat_nopbc(coords, types, spec: DescriptorSpec, *, atom_mask=None):
+    """Environment matrix of a FINITE (non-periodic) system, one frame or a
+    batch, with an optional real-atom mask (N,) (DescrptSeAMask,
+    deepmd/descriptor/se_a_mask.py: aparam marks real against virtual
+    atoms so one graph serves molecules of several sizes).
+
+    No minimum image; masked-out (virtual) atoms are excluded as neighbors
+    and their own rows are zero. As in the reference, the switch keeps the
+    declared rcut, so the descriptor stays continuous when real atoms
+    leave the radius. Returns (R, nlist) laid out as env_mat's."""
+    disp = coords[..., None, :, :] - coords[..., :, None, :]  # no PBC
+    am = None
+    if atom_mask is not None:
+        am = torch.as_tensor(atom_mask, device=coords.device).bool()
+    R, nlist = _env_sections(disp, types, spec, neighbor_mask=am)
+    if am is not None:
+        R = R * am[:, None, None]                        # virtual centers
+        nlist = torch.where(am[:, None], nlist, -1)
+    return R, nlist
+
+
+def _env_sections(disp, types, spec: DescriptorSpec, *, neighbor_mask=None,
+                  efield=None, ef_mode: str = "none"):
+    """R and nlist from the pair displacements disp (..., N, N, 3): per
+    type, the sel[t] nearest within rcut, sorted by distance, as fmt_nlist
+    lays them out; neighbors where neighbor_mask (N,) is False never
+    count."""
+    n = disp.shape[-2]
     r2 = torch.sum(disp * disp, dim=-1)
     big = 1e10
     r2 = r2 + big * torch.eye(n, dtype=r2.dtype, device=r2.device)
-    types = torch.as_tensor(types, device=coords.device)
+    if neighbor_mask is not None:
+        r2 = torch.where(neighbor_mask[None, :], r2, big)
+    types = torch.as_tensor(types, device=disp.device)
 
     R_secs, nl_secs = [], []
     for t in range(spec.ntypes):

@@ -6,8 +6,9 @@ freeze_graph). The artifact is the reference's own .npz: `__meta__`, a
 JSON string of the spec (with `type_map` and the tree's structure), and
 `leaf_{i}`, the parameter leaves in JAX's tree_flatten order: dict keys
 sorted (`b`, `idt`, `w`; `final` before `hidden`; `embed`, `fit`,
-`stats`), lists in order. So a model frozen by either package loads in
-the other. The order is rebuilt here from the spec, without JAX.
+`stats`), lists in order (ckpt.tree_leaves). So a model frozen by either
+package loads in the other. The order is rebuilt here from the spec,
+without JAX.
 
 params_from_numpy / params_to_numpy carry a parameter tree between the two
 packages as numpy arrays (the JAX tree under jax.tree_util.tree_map(
@@ -22,34 +23,11 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from g4s_tpu_torch.ckpt import tree_leaves, tree_unflatten
 from g4s_tpu_torch.models.deepmd.descriptor import DescriptorSpec
 from g4s_tpu_torch.models.deepmd.model import (ModelSpec, init_params,
                                                map_tree)
 from g4s_tpu_torch.sparse.containers import resolve_device
-
-
-def _leaves(tree) -> list:
-    """Leaves in JAX's tree_flatten order: dicts by sorted key, lists and
-    tuples in order."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in _leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _leaves(v)]
-    return [tree]
-
-
-def _unflatten(skeleton, it):
-    """The skeleton's tree with its leaves taken from the iterator `it` in
-    _leaves order; each must have its skeleton leaf's shape."""
-    if isinstance(skeleton, dict):
-        return {k: _unflatten(skeleton[k], it) for k in sorted(skeleton)}
-    if isinstance(skeleton, (list, tuple)):
-        return type(skeleton)(_unflatten(v, it) for v in skeleton)
-    leaf = next(it)
-    if leaf.shape != tuple(skeleton.shape):
-        raise ValueError(f"a leaf of shape {leaf.shape} where the spec "
-                         f"gives {tuple(skeleton.shape)}")
-    return leaf
 
 
 def _treedef_str(tree) -> str:
@@ -98,7 +76,7 @@ def freeze(params, spec: ModelSpec, path, *, type_map=None) -> None:
         type_map=list(type_map) if type_map else None,
         treedef=_treedef_str(params))
     arrays = {f"leaf_{i}": l for i, l in
-              enumerate(_leaves(params_to_numpy(params)))}
+              enumerate(tree_leaves(params_to_numpy(params)))}
     np.savez(path, __meta__=json.dumps(meta), **arrays)
 
 
@@ -117,11 +95,11 @@ def load_frozen(path, *, device="cuda") -> Tuple[dict, ModelSpec]:
         numb_aparam=meta.get("numb_aparam", 0))
     # the tree's structure from a skeleton of the same spec
     skeleton = init_params(torch.Generator().manual_seed(0), spec)
-    if len(_leaves(skeleton)) != len(leaves):
+    if len(tree_leaves(skeleton)) != len(leaves):
         raise ValueError(f"{path}: {len(leaves)} leaves, but a "
                          f"{spec.descriptor_type} model of this spec has "
-                         f"{len(_leaves(skeleton))}")
-    return params_from_numpy(_unflatten(skeleton, iter(leaves)),
+                         f"{len(tree_leaves(skeleton))}")
+    return params_from_numpy(tree_unflatten(skeleton, iter(leaves)),
                              device=device), spec
 
 

@@ -20,7 +20,7 @@ function takes one frame (coords (N, 3), box (3, 3)) or a batch of frames
 
 Of the reference's descriptor types, se_e2_a and se_e2_r are ported; the
 others (se_atten, se_t, hybrid, loc_frame, se_a_ebd, se_a_mask) raise
-NotImplementedError (ROADMAP.md queue 1, item 8).
+NotImplementedError (ROADMAP.md queue 1, item 6, "The rest of DeePMD").
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from g4s_tpu_torch.ckpt import rebuild
 from g4s_tpu_torch.models.deepmd.descriptor import (DescriptorSpec, env_mat,
                                                     normalize_env_mat)
 from g4s_tpu_torch.models.deepmd.network import (embedding_net_apply,
@@ -77,16 +78,18 @@ def check_ported(spec: ModelSpec) -> None:
     if spec.descriptor_type not in PORTED_DESCRIPTORS:
         raise NotImplementedError(
             f"descriptor_type {spec.descriptor_type!r} is not ported to "
-            f"g4s_tpu_torch yet (ROADMAP.md queue 1, item 8); ported: "
+            f"g4s_tpu_torch yet (ROADMAP.md queue 1, item 6, 'The rest of "
+            f"DeePMD'); ported: "
             f"{', '.join(PORTED_DESCRIPTORS)}")
 
 
 def map_tree(fn, tree):
-    """fn applied to every leaf of a tree of dicts, lists and tuples."""
+    """fn applied to every leaf of a tree of dicts, lists, tuples and
+    NamedTuples."""
     if isinstance(tree, dict):
         return {k: map_tree(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(map_tree(fn, v) for v in tree)
+        return rebuild(tree, [map_tree(fn, v) for v in tree])
     return fn(tree)
 
 
@@ -167,16 +170,26 @@ def _descriptor_plain(embed, spec: ModelSpec, Rn, types):
                 acc = acc + torch.sum(G, dim=-2)
             D_by_tc.append(acc / nnei)
             continue
-        T = torch.zeros(lead + (4, spec.m1), dtype=Rn.dtype, device=Rn.device)
-        for tn in range(nt):
-            sec_R = Rn[..., sec[tn]: sec[tn + 1], :]       # (..., N, sel, 4)
-            G = embedding_net_apply(embed[tc][tn], sec_R[..., 0:1])
-            T = T + torch.einsum("...sc,...sm->...cm", sec_R, G)
-        T = T / nnei
+        T = env_embedding(embed[tc], spec, Rn)
         T2 = T[..., : spec.axis_neuron]
         D = torch.einsum("...cm,...ck->...mk", T, T2)
         D_by_tc.append(D.reshape(lead + (-1,)))
     return _select_by_type(D_by_tc, types)
+
+
+def env_embedding(embed_tc, spec: ModelSpec, Rn):
+    """T = sum over neighbor-type sections of R̃_sec^T G_sec / nnei,
+    (..., N, 4, m1), for one center type's embedding nets embed_tc[tn]
+    (se_a.py:1056-1095); its rows 1:4 are the covariant qmat of the
+    tensor fits."""
+    sec = np.concatenate([[0], np.cumsum(spec.descriptor.sel)])
+    T = torch.zeros(Rn.shape[:-2] + (4, spec.m1), dtype=Rn.dtype,
+                    device=Rn.device)
+    for tn in range(spec.descriptor.ntypes):
+        sec_R = Rn[..., sec[tn]: sec[tn + 1], :]           # (..., N, sel, 4)
+        G = embedding_net_apply(embed_tc[tn], sec_R[..., 0:1])
+        T = T + torch.einsum("...sc,...sm->...cm", sec_R, G)
+    return T / spec.descriptor.nnei
 
 
 def _fit_input(params, spec: ModelSpec, D, fparam, aparam):
@@ -221,10 +234,15 @@ def total_energy(params, spec: ModelSpec, coords, box, types,
 
 
 def energy_force_virial(params, spec: ModelSpec, coords, box, types,
-                        fparam=None, aparam=None):
+                        fparam=None, aparam=None, *, create_graph=False):
     """E, F = -dE/dx, virial W = -dE/de (strain derivative) of one frame,
     or of each frame of a batch (frames are independent, so one backward
-    pass of the summed energy gives every frame's derivatives)."""
+    pass of the summed energy gives every frame's derivatives).
+
+    create_graph=True is the training form (train.batched_efv): E, F and W
+    keep their graph, so a loss on the forces differentiates through the
+    first backward pass to the parameters. Otherwise E is detached and F
+    and W carry no graph."""
     with torch.enable_grad():
         x = coords.detach().requires_grad_(True)
         strain = torch.zeros(coords.shape[:-2] + (3, 3), dtype=coords.dtype,
@@ -234,5 +252,6 @@ def energy_force_virial(params, spec: ModelSpec, coords, box, types,
         bs = box @ (eye + strain)
         e = total_energy(params, spec, xs, bs, types, fparam=fparam,
                          aparam=aparam)
-        g_x, g_s = torch.autograd.grad(e.sum(), (x, strain))
-    return e.detach(), -g_x, -g_s
+        g_x, g_s = torch.autograd.grad(e.sum(), (x, strain),
+                                       create_graph=create_graph)
+    return (e if create_graph else e.detach()), -g_x, -g_s

@@ -80,13 +80,19 @@ def init_fitting_net(gen, in_dim: int, sizes: Sequence[int], *,
     return {"hidden": layers, "final": final}
 
 
-def fitting_net_apply(params, x):
-    """x: (..., in_dim) -> (...,) atomic energies."""
+def fitting_net_outputs(params, x):
+    """x: (..., in_dim) -> (..., n_out), every output of the final layer
+    (n_out = 1 for energies; the DOS and tensor fits' final layers are
+    wider)."""
     for layer in params["hidden"]:
         h = torch.tanh(dense_matmul(x, layer["w"]) + layer["b"])
         if "idt" in layer:
             h = h * layer["idt"]
         n_in, n_out = layer["w"].shape
         x = x + h if n_out == n_in else h
-    out = dense_matmul(x, params["final"]["w"]) + params["final"]["b"]
-    return out[..., 0]
+    return dense_matmul(x, params["final"]["w"]) + params["final"]["b"]
+
+
+def fitting_net_apply(params, x):
+    """x: (..., in_dim) -> (...,) atomic energies."""
+    return fitting_net_outputs(params, x)[..., 0]

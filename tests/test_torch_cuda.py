@@ -235,6 +235,42 @@ def test_deepmd_energy_force_virial_on_cuda_matches_cpu(cuda):
             assert (g.cpu() - w).abs().max() <= 1e-10 * w.abs().max(), name
 
 
+def test_deepmd_train_step_on_cuda_matches_cpu(cuda):
+    """One Trainer step (energy, force and virial terms; the force term's
+    double backward) at tiny_spec widths on a batch of 3 frames of 20
+    atoms, f64, on the card against the CPU: the loss and every parameter
+    leaf within 1e-10 (the card's gather backward adds atomically, so not
+    bitwise)."""
+    from g4s_tpu_torch.ckpt import tree_leaves
+    from g4s_tpu_torch.models.deepmd import (DescriptorSpec, ModelSpec,
+                                             init_params)
+    from g4s_tpu_torch.models.deepmd.model import params_to
+    from g4s_tpu_torch.models.deepmd.train import (LossConfig, LRConfig,
+                                                   Trainer, batch_to)
+    spec = ModelSpec(DescriptorSpec(rcut=3.0, rcut_smth=0.5, sel=(6, 10),
+                                    ntypes=2),
+                     embed_neurons=(4, 8, 16), axis_neuron=4,
+                     fit_neurons=(16, 16))
+    params = init_params(torch.Generator().manual_seed(0), spec)
+    rng = np.random.default_rng(5)
+    raw = dict(coord=rng.uniform(0, 7.0, (3, 20, 3)),
+               box=np.tile(np.eye(3) * 7.0, (3, 1, 1)),
+               energy=rng.normal(size=3), force=rng.normal(size=(3, 20, 3)),
+               virial=rng.normal(size=(3, 3, 3)),
+               types=np.sort(rng.integers(0, 2, 20)))
+    tr = Trainer(spec, LossConfig(0.5, 1.0, 100.0, 1.0, 0.1, 0.5),
+                 LRConfig(1e-3, 1e-5, 2, 10))
+    out = []
+    for p in (params, params_to(params, device=cuda)):
+        like = tree_leaves(p)[0]
+        out.append(tr._update(p, tr.init(p), batch_to(raw, like), 0))
+    (pc, _, lc, _), (pg, _, lg, _) = out
+    assert lg.is_cuda and abs(float(lg) - float(lc)) <= 1e-10 * abs(float(lc))
+    for c, g in zip(tree_leaves(pc), tree_leaves(pg)):
+        assert g.is_cuda
+        assert (g.cpu() - c).abs().max() <= 1e-10 * c.abs().max()
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_sorted_segment_sum_is_repeatable_and_in_order(cuda, dtype):
     """About 2^20 values that cancel heavily (each appears with both signs,

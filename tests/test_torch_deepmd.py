@@ -207,7 +207,7 @@ def test_port_init_params_has_the_reference_tree():
     pp = P["model"].init_params(torch.Generator().manual_seed(0),
                                 port_spec(js))
     jl, jdef = jax.tree_util.tree_flatten(jp)
-    pl = P["freeze"]._leaves(pp)
+    pl = importlib.import_module("g4s_tpu_torch.ckpt").tree_leaves(pp)
     assert P["freeze"]._treedef_str(pp) == str(jdef)
     assert [tuple(x.shape) for x in pl] == [tuple(x.shape) for x in jl]
 

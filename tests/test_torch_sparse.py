@@ -60,7 +60,11 @@ def test_package_imports_no_jax():
             "g4s_tpu_torch.ops, g4s_tpu_torch.kernels._build, "
             "g4s_tpu_torch.models.deepmd, g4s_tpu_torch.drivers.dp, "
             "g4s_tpu_torch.ops.static_spmv, "
-            "g4s_tpu_torch.drivers.static_spmv; "
+            "g4s_tpu_torch.drivers.static_spmv, g4s_tpu_torch.ckpt, "
+            "g4s_tpu_torch.models.deepmd.train, "
+            "g4s_tpu_torch.models.deepmd.fit_dos, "
+            "g4s_tpu_torch.models.deepmd.fit_tensor, "
+            "g4s_tpu_torch.models.deepmd.spin; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'g4s_tpu.')) or m == 'g4s_tpu'); "
             "print(bad); sys.exit(1 if bad else 0)")
