@@ -114,6 +114,22 @@ Run from the root of a checkout: `python3 chip_smoke.py`. It
      `--restart` from its checkpoint for 5 steps, `dp freeze` and DeepPot
      on the card within 1e-5 of the trained parameters' f32 energy. No
      hand kernel lies on this path (launch counts printed, 0).
+ 13. Cantera's NonIdealShockTube at the n-dodecane mechanism's size: a
+     synthetic mechanism with its counts (100 species, 553 reactions, 15
+     falloff, 19 three-body; _synthetic_mechanism_yaml, seed
+     CANTERA_SEED), since nDodecane_Reitz.yaml is not in the repository,
+     through ShockTubeBenchmark.run_single at 1000 K and 40 atm, rtol
+     1e-8, atol 1e-14, as the CLI runs it: per phase (Redlich-Kwong and
+     ideal gas) tau, BDF steps, RHS and Jacobian evaluations, wall s, host
+     reads, device kernels, busy ms and idle share per step; ms and
+     kernels per RHS, jacfwd Jacobian and LU factor + solve at n = 101;
+     in f64 the RHS and Jacobian at y0 and tau/2 and the RK initial state
+     on the card against the host CPU, and the host CPU's run_single (tau
+     within 1e-4); the card's run must hold each element and U, rise by
+     500 K and give RK and IG apart. No Pallas kernel lies on this path
+     in the reference (its stoichiometric products are dense XLA dots,
+     its LU is XLA's), so no hand kernel does here (launch counts
+     printed, 0).
 
 Device times are medians per call between back-to-back calls queued
 behind a device sleep (g4s_tpu_torch.obs.timings.device_ms); "cold" times
@@ -171,6 +187,29 @@ DEEPMD_F32_TOL = 1e-4
 # trainer's final parameters, f32 energy
 DEEPMD_TRAIN_F64_TOL = 1e-10
 DEEPMD_FREEZE_F32_TOL = 1e-5
+# Cantera NonIdealShockTube (phase 13): a synthetic mechanism with
+# n-dodecane's counts (tests/test_cantera.py:39-45) drawn from
+# CANTERA_SEED; f64 on the card against the host CPU: RHS and Jacobian
+# relative to each one's largest entry, the Redlich-Kwong initial state,
+# the CPU run's ignition delay; the reference's invariants of a
+# constant-UV ignition (tests/test_cantera.py:164-186): elements, U, a
+# temperature rise. The host CPU's run stops at CANTERA_CPU_T_END_OVER_TAU
+# times the card's larger tau (at most the protocol's 5 ms), past the OH
+# peak; the state at tau/2 is integrated at CANTERA_HALF_RTOL (it only
+# places the comparisons and the profiled window of CANTERA_WINDOW
+# steps).
+CANTERA_SEED = 0
+CANTERA_COUNTS = {"nspec": 100, "nrxn": 553, "n_falloff": 15,
+                  "n_three_body": 19}
+CANTERA_F64_TOL = 1e-11
+CANTERA_Y0_TOL = 1e-13
+CANTERA_TAU_TOL = 1e-4
+CANTERA_ELEMENT_TOL = 1e-8
+CANTERA_U_TOL = 1e-6
+CANTERA_T_RISE = 500.0
+CANTERA_CPU_T_END_OVER_TAU = 1.25
+CANTERA_HALF_RTOL = 1e-6
+CANTERA_WINDOW = 40
 
 
 def _say(phase: str, **kw) -> None:
@@ -372,6 +411,509 @@ def _rmat_like(n: int, nnz: int, seed: int = 7, cap: int = 256):
                        (rows[:m], cols[:m])), shape=(n, n)).tocsr()
     a.sum_duplicates()
     return a
+
+
+_SYN_CORE = [
+    # name, composition, Hf298 kJ/mol, S298 J/mol/K, cp(300 K)/R,
+    # cp(high T)/R
+    ("c12h26", {"C": 12, "H": 26}, -290.9, 622.5, 28.0, 58.0),
+    ("o2", {"O": 2}, 0.0, 205.15, 3.53, 4.6),
+    ("n2", {"N": 2}, 0.0, 191.6, 3.50, 4.4),
+    ("oh", {"O": 1, "H": 1}, 37.3, 183.7, 3.58, 4.5),
+    ("h2o", {"H": 2, "O": 1}, -241.8, 188.8, 4.04, 6.8),
+    ("ho2", {"H": 1, "O": 2}, 12.0, 229.0, 4.20, 7.0),
+    ("h2o2", {"H": 2, "O": 2}, -136.1, 232.9, 5.15, 9.0),
+    ("h", {"H": 1}, 218.0, 114.7, 2.5, 2.5),
+    ("co", {"C": 1, "O": 1}, -110.5, 197.7, 3.50, 4.5),
+    ("co2", {"C": 1, "O": 2}, -393.5, 213.8, 4.47, 7.4),
+    ("c12h25-1", {"C": 12, "H": 25}, -92.9, 640.5, 27.5, 57.0),
+    ("c2h4", {"C": 2, "H": 4}, 52.4, 219.3, 5.2, 17.0),
+    ("ch2o", {"C": 1, "H": 2, "O": 1}, -108.6, 218.8, 4.26, 10.5),
+    ("hco", {"H": 1, "C": 1, "O": 1}, 43.5, 224.6, 4.15, 7.0),
+    ("c12h25-2", {"C": 12, "H": 25}, -98.9, 643.0, 27.5, 57.0),
+    ("o", {"O": 1}, 249.2, 161.1, 2.63, 2.55),
+    ("h2", {"H": 2}, 0.0, 130.7, 3.47, 4.6),
+    ("ch3", {"C": 1, "H": 3}, 146.0, 194.2, 4.65, 10.5),
+    ("ch4", {"C": 1, "H": 4}, -74.6, 186.3, 4.30, 13.0),
+    ("c2h5", {"C": 2, "H": 5}, 119.0, 247.0, 6.2, 20.0),
+    ("c2h6", {"C": 2, "H": 6}, -84.0, 229.2, 6.3, 22.0),
+    ("ar", {"Ar": 1}, 0.0, 154.8, 2.5, 2.5),
+    ("ch3o", {"C": 1, "H": 3, "O": 1}, 21.0, 229.0, 4.9, 13.0),
+    ("c2h3", {"C": 2, "H": 3}, 299.0, 233.0, 5.1, 14.0),
+    ("ch3o2", {"C": 1, "H": 3, "O": 2}, 12.0, 270.0, 6.4, 16.0),
+    ("ch3o2h", {"C": 1, "H": 4, "O": 2}, -132.0, 285.0, 7.9, 19.0),
+    ("c2h5o2", {"C": 2, "H": 5, "O": 2}, -27.0, 315.0, 9.0, 25.0),
+    ("ch3cho", {"C": 2, "H": 4, "O": 1}, -166.2, 263.8, 6.6, 20.0),
+]
+# critical constants (K, bar) of the species that have published ones; n-
+# dodecane's set its Redlich-Kwong a and b
+_SYN_CRIT = {"c12h26": (658.0, 18.2), "o2": (154.6, 50.4),
+             "n2": (126.2, 33.9), "h2o": (647.1, 220.6),
+             "co2": (304.1, 73.8), "co": (132.9, 35.0), "h2": (33.2, 13.0),
+             "ar": (150.7, 48.6), "ch4": (190.6, 46.0),
+             "c2h4": (282.3, 50.4), "c2h6": (305.3, 48.7)}
+
+
+def _synthetic_mechanism_yaml(path, *, nspec: int, nrxn: int,
+                              n_falloff: int, n_three_body: int,
+                              seed: int) -> dict:
+    """Write a Cantera-format YAML mechanism with n-dodecane's shape and
+    return its counts: the phases nDodecane_RK (Redlich-Kwong) and
+    nDodecane_IG (ideal gas) over the same `nspec` species and `nrxn`
+    reactions, `n_falloff` of them falloff (with Troe) and `n_three_body`
+    three-body (with efficiencies), so that ShockTubeBenchmark(path) runs
+    with its default phase names. It stands in for nDodecane_Reitz.yaml
+    (100 species, 553 reactions, 15 falloff, 19 three-body), which is not
+    in the repository.
+
+    The species are the H2/O2/CO/C1-C2 core (published formation
+    enthalpies and entropies at 298 K, so heat release is real), the
+    dodecyl isomers, and for n = 12..3 the alkane, alkyl, alkene, RO2,
+    QOOH, O2QOOH and ketohydroperoxide of the n-alkane oxidation scheme
+    (group-additivity estimates); the first `nspec` of that list are kept.
+    The reactions are the H2/O2/CO core with published rates, then the
+    fuel's and each family's abstractions, beta-scissions, O2 additions
+    and low-temperature chain, every one balanced in every element by
+    construction, with Arrhenius A, b and Ea drawn from `seed` inside the
+    ranges published mechanisms give each reaction class; the first
+    `nrxn` whose species are all kept, up to the quota of each type, are
+    written. NASA7 polynomials are fitted to a smooth cp/R rising from its
+    300 K value to its high-temperature value, the two ranges meeting at
+    1000 K in value and slope; cp/R stays in [2.5, 60] over 300-3500 K.
+    Redlich-Kwong a and b come from critical constants by the RK relations
+    (a = 0.42748 R^2 Tc^2.5 / Pc, b = 0.08664 R Tc / Pc): published ones
+    where the table has them (n-dodecane: Tc 658 K, Pc 18.2 bar), else Tc
+    and Pc drawn from `seed` in a range that grows with the heavy atoms."""
+    import numpy as np
+
+    R = 8.314462618
+    rng = np.random.default_rng(seed)
+
+    # ---- species: composition, Hf, S, cp(300)/R, cp(high)/R ----
+    catalog = [tuple(s) for s in _SYN_CORE]
+
+    def formula(c, h, o):
+        out = {"C": c, "H": h}
+        if o:
+            out["O"] = o
+        return out
+
+    def cp_guess(comp):
+        atoms = sum(comp.values())
+        return (min(45.0, 2.5 + 0.7 * (atoms - 1)),
+                min(58.0, 3.0 + 1.5 * (atoms - 1)))
+
+    def add(name, comp, hf, s):
+        catalog.append((name, comp, hf, s) + cp_guess(comp))
+
+    def alk_h(n):
+        return -84.4 - 20.6 * (n - 2), 229.2 + 39.0 * (n - 2)
+
+    def rad(n):
+        return "c12h25-1" if n == 12 else f"c{n}h{2 * n + 1}"
+
+    for n in range(12, 2, -1):
+        h_alk, s_alk = alk_h(n)
+        if n == 12:
+            for j in range(3, 7):
+                add(f"c12h25-{j}", formula(12, 25, 0),
+                    h_alk + 198.0 + rng.uniform(-4, 4),
+                    s_alk + 18.0 + rng.uniform(-3, 3))
+        else:
+            add(f"c{n}h{2 * n + 2}", formula(n, 2 * n + 2, 0), h_alk, s_alk)
+            add(rad(n), formula(n, 2 * n + 1, 0), h_alk + 198.0,
+                s_alk + 18.0)
+        h_r, s_r = h_alk + 198.0, s_alk + 18.0
+        add(f"c{n}h{2 * n}", formula(n, 2 * n, 0), h_alk + 126.0,
+            s_alk - 3.0)
+        add(f"c{n}h{2 * n + 1}o2", formula(n, 2 * n + 1, 2), h_r - 150.0,
+            s_r + 65.0)
+        add(f"c{n}ooh", formula(n, 2 * n + 1, 2), h_r - 90.0, s_r + 75.0)
+        add(f"c{n}o2ooh", formula(n, 2 * n + 1, 4), h_r - 240.0,
+            s_r + 135.0)
+        add(f"c{n}ket", formula(n, 2 * n, 3), h_r - 377.3, s_r + 81.0)
+    if not 1 <= nspec <= len(catalog):
+        raise ValueError(f"nspec must be in 1..{len(catalog)}")
+    names = [c[0] for c in catalog[:nspec]]
+    have = set(names)
+    for need in ("c12h26", "o2", "n2", "oh"):
+        if need not in have:
+            raise ValueError(f"nspec={nspec} leaves out {need}")
+
+    # ---- NASA7: constrained fits of cp/R, h and s set at 298.15 K ----
+    t_lo, t_mid, t_hi, t_ref = 200.0, 1000.0, 3500.0, 298.15
+    grid_lo = np.linspace(t_lo, t_mid, 60)
+    grid_hi = np.linspace(t_mid, t_hi, 120)
+
+    def vander(T):
+        u = np.asarray(T) / 1000.0
+        return np.stack([u ** k for k in range(5)], axis=-1)
+
+    def dvander(T):
+        u = np.asarray(T) / 1000.0
+        return np.stack([k * u ** (k - 1) if k else 0 * u
+                         for k in range(5)], axis=-1) / 1000.0
+
+    scale = 1000.0 ** np.arange(5)
+
+    def nasa7(hf, s, cp0, cpi):
+        if cp0 == cpi:
+            c = np.array([cp0, 0, 0, 0, 0.0])
+            low, high = c, c
+        else:
+            def target(T):
+                return cpi - (cpi - cp0) * np.exp(-(T - 300.0) / 700.0)
+            b_lo = np.linalg.lstsq(vander(grid_lo), target(grid_lo),
+                                   rcond=None)[0]
+            # high range: least squares under value and slope continuity
+            A = vander(grid_hi)
+            C = np.stack([vander(t_mid), dvander(t_mid)])
+            d = C @ b_lo
+            kkt = np.block([[A.T @ A, C.T], [C, np.zeros((2, 2))]])
+            rhs = np.concatenate([A.T @ target(grid_hi), d])
+            b_hi = np.linalg.solve(kkt, rhs)[:5]
+            low, high = b_lo / scale, b_hi / scale
+
+        def h_poly(a, T):       # H/R without a5
+            return T * (a[0] + T * (a[1] / 2 + T * (a[2] / 3 + T * (
+                a[3] / 4 + T * a[4] / 5))))
+
+        def s_poly(a, T):       # S/R without a6
+            return (a[0] * np.log(T) + T * (a[1] + T * (a[2] / 2 + T * (
+                a[3] / 3 + T * a[4] / 4))))
+        a5l = hf * 1000.0 / R - h_poly(low, t_ref)
+        a6l = s / R - s_poly(low, t_ref)
+        a5h = h_poly(low, t_mid) + a5l - h_poly(high, t_mid)
+        a6h = s_poly(low, t_mid) + a6l - s_poly(high, t_mid)
+        return ([*low, a5l, a6l], [*high, a5h, a6h])
+
+    lines = ["description: >-",
+             f"  Synthetic n-dodecane-shaped mechanism (seed {seed}):",
+             f"  {nspec} species, see chip_smoke._synthetic_mechanism_yaml.",
+             "units: {length: cm, quantity: mol, "
+             "activation-energy: cal/mol}",
+             "phases:"]
+    sp_list = ", ".join(names)
+    for phase, thermo in (("nDodecane_RK", "Redlich-Kwong"),
+                          ("nDodecane_IG", "ideal-gas")):
+        lines += [f"- name: {phase}", f"  thermo: {thermo}",
+                  "  elements: [O, H, C, N, Ar]",
+                  f"  species: [{sp_list}]", "  kinetics: gas",
+                  "  state: {T: 300.0, P: 1 atm}"]
+    # critical constants for the whole catalog, so that a smaller instance
+    # is a part of a larger one drawn from the same seed
+    crit = {}
+    for name, comp, *_ in catalog:
+        heavy = sum(v for k, v in comp.items() if k != "H")
+        drawn = (min(rng.uniform(150.0, 350.0) + 35.0 * heavy, 800.0),
+                 rng.uniform(15.0, 60.0))
+        crit[name] = _SYN_CRIT.get(name, drawn)
+    lines.append("species:")
+    for name, comp, hf, s, cp0, cpi in catalog[:nspec]:
+        low, high = nasa7(hf, s, cp0, cpi)
+        tc, pc = crit[name][0], crit[name][1] * 1e5
+        a_rk = 0.42748 * R * R * tc ** 2.5 / pc * 1e12
+        b_rk = 0.08664 * R * tc / pc * 1e6
+        fmt = ", ".join
+        lines += [f"- name: {name}",
+                  "  composition: {" + fmt(f"{k}: {v}" for k, v in
+                                           comp.items()) + "}",
+                  "  thermo:", "    model: NASA7",
+                  f"    temperature-ranges: [{t_lo}, {t_mid}, {t_hi}]",
+                  "    data:",
+                  "    - [" + fmt(f"{v:.12e}" for v in low) + "]",
+                  "    - [" + fmt(f"{v:.12e}" for v in high) + "]",
+                  "  equation-of-state:",
+                  f"    model: Redlich-Kwong",
+                  f"    a: {a_rk:.10e}", f"    b: {b_rk:.10e}"]
+
+    # ---- reactions ----
+    effs_all = {"h2": 2.5, "h2o": 12.0, "co": 1.9, "co2": 3.8, "ar": 0.7,
+                "ch4": 2.0, "c2h6": 3.0}
+
+    def u(lo, hi):
+        return float(rng.uniform(lo, hi))
+
+    cands = []    # (equation, kind, dict of rate fields)
+
+    def el(eq, A, b, Ea):
+        cands.append((eq, "elementary", {"A": A, "b": b, "Ea": Ea}))
+
+    def tb(eq, A, b, Ea):
+        cands.append((eq, "three-body", {"A": A, "b": b, "Ea": Ea}))
+
+    def fo(eq, hi, lo, troe):
+        cands.append((eq, "falloff", {"hi": hi, "lo": lo, "troe": troe}))
+
+    # the H2/O2/CO/C1-C2 core (rates as in published H2/O2, CO and C1-C2
+    # mechanisms)
+    fo("h + o2 (+M) <=> ho2 (+M)", (1.475e12, 0.6, 0.0),
+       (6.366e20, -1.72, 524.8), (0.8, 1e-30, 1e30, 0.0))
+    fo("h2o2 (+M) <=> oh + oh (+M)", (2.951e14, 0.0, 48430.0),
+       (1.202e17, 0.0, 45500.0), (0.5, 1e-30, 1e30, 0.0))
+    tb("h + oh + M <=> h2o + M", 3.8e22, -2.0, 0.0)
+    tb("hco + M <=> h + co + M", 4.75e11, 0.66, 14870.0)
+    el("c12h26 + o2 <=> c12h25-1 + ho2", 4.0e13, 0.0, 49500.0)
+    el("c12h26 + oh <=> c12h25-1 + h2o", 2.0e6, 2.0, -600.0)
+    el("c12h26 + ho2 <=> c12h25-1 + h2o2", 1.5e4, 2.6, 14500.0)
+    el("c12h25-1 => 6 c2h4 + h", 2.0e12, 0.0, 30000.0)
+    el("ho2 + ho2 <=> h2o2 + o2", 4.2e14, 0.0, 11982.0)
+    el("ho2 + oh <=> h2o + o2", 2.89e13, 0.0, -497.0)
+    el("ho2 + h <=> oh + oh", 7.079e13, 0.0, 295.0)
+    el("h2o2 + h <=> h2o + oh", 2.41e13, 0.0, 3970.0)
+    el("h2o2 + oh <=> ho2 + h2o", 1.0e12, 0.0, 0.0)
+    el("co + oh <=> co2 + h", 2.229e5, 1.89, -1158.7)
+    el("co + ho2 <=> co2 + oh", 3.01e13, 0.0, 23000.0)
+    el("c2h4 + o2 => ch2o + ch2o", 2.0e13, 0.0, 38000.0)
+    el("ch2o + oh <=> hco + h2o", 3.43e9, 1.18, -447.0)
+    el("ch2o + ho2 <=> hco + h2o2", 3.0e12, 0.0, 13000.0)
+    el("ch2o + o2 <=> hco + ho2", 1.0e14, 0.0, 40000.0)
+    el("hco + o2 <=> co + ho2", 7.58e12, 0.0, 410.0)
+    el("hco + oh <=> co + h2o", 3.02e13, 0.0, 0.0)
+    el("hco + ho2 => co2 + h + oh", 3.0e13, 0.0, 0.0)
+    el("hco + hco => ch2o + co", 3.0e13, 0.0, 0.0)
+    el("c12h26 + o2 <=> c12h25-2 + ho2", 4.0e13, 0.0, 48000.0)
+    el("c12h26 + oh <=> c12h25-2 + h2o", 3.0e6, 2.0, -800.0)
+    el("c12h26 + ho2 <=> c12h25-2 + h2o2", 2.0e4, 2.6, 14000.0)
+    el("c12h25-2 => 6 c2h4 + h", 2.0e12, 0.0, 30500.0)
+    el("c12h25-1 <=> c12h25-2", 3.0e11, 0.0, 22000.0)
+    tb("ch2o + M <=> hco + h + M", 3.3e16, 0.0, 81000.0)
+    el("h + o2 <=> o + oh", 3.547e15, -0.406, 16599.0)
+    el("o + h2 <=> h + oh", 5.08e4, 2.67, 6290.0)
+    el("h2 + oh <=> h2o + h", 2.16e8, 1.51, 3430.0)
+    el("o + h2o <=> oh + oh", 2.97e6, 2.02, 13400.0)
+    tb("h2 + M <=> h + h + M", 4.577e19, -1.4, 104380.0)
+    tb("o + o + M <=> o2 + M", 6.165e15, -0.5, 0.0)
+    tb("o + h + M <=> oh + M", 4.714e18, -1.0, 0.0)
+    fo("co + o (+M) <=> co2 (+M)", (1.8e10, 0.0, 2384.0),
+       (1.55e24, -2.79, 4191.0), (0.5, 1e-30, 1e30, 0.0))
+    el("ho2 + h <=> h2 + o2", 1.66e13, 0.0, 823.0)
+    el("ho2 + o <=> o2 + oh", 3.25e13, 0.0, 0.0)
+    el("h2o2 + h <=> ho2 + h2", 4.82e13, 0.0, 7950.0)
+    el("h2o2 + o <=> oh + ho2", 9.55e6, 2.0, 3970.0)
+    el("co + o2 <=> co2 + o", 2.53e12, 0.0, 47700.0)
+    el("hco + h <=> co + h2", 7.23e13, 0.0, 0.0)
+    el("hco + o <=> co + oh", 3.02e13, 0.0, 0.0)
+    el("ch2o + h <=> hco + h2", 9.33e8, 1.5, 2976.0)
+    el("ch2o + o <=> hco + oh", 4.16e11, 0.57, 2762.0)
+    el("c12h26 + h <=> c12h25-1 + h2", 1.3e6, 2.4, 4470.0)
+    el("c12h26 + o <=> c12h25-1 + oh", 1.0e6, 2.5, 2200.0)
+    fo("ch3 + h (+M) <=> ch4 (+M)", (1.27e16, -0.63, 383.0),
+       (2.477e33, -4.76, 2440.0), (0.783, 74.0, 2941.0, 6964.0))
+    el("ch3 + o <=> ch2o + h", 8.43e13, 0.0, 0.0)
+    el("ch3 + o2 <=> ch2o + oh", 3.6e10, 0.0, 8940.0)
+    el("ch3 + ho2 <=> ch4 + o2", 1.0e12, 0.0, 0.0)
+    el("ch4 + h <=> ch3 + h2", 6.6e8, 1.62, 10840.0)
+    el("ch4 + oh <=> ch3 + h2o", 1.0e8, 1.6, 3120.0)
+    el("ch4 + o <=> ch3 + oh", 1.02e9, 1.5, 8600.0)
+    el("ch4 + ho2 <=> ch3 + h2o2", 3.42e11, 0.0, 19290.0)
+    el("ch2o + ch3 <=> hco + ch4", 3.636e-6, 5.42, 998.0)
+    fo("c2h4 + h (+M) <=> c2h5 (+M)", (5.4e11, 0.454, 1820.0),
+       (6.0e41, -7.62, 6970.0), (0.9753, 210.0, 984.0, 4374.0))
+    el("c2h4 + oh => ch2o + ch3", 2.0e12, 0.0, 960.0)
+    el("c2h4 + o => ch3 + hco", 1.25e7, 1.83, 220.0)
+    el("c2h5 + o2 <=> c2h4 + ho2", 8.4e11, 0.0, 3875.0)
+    fo("ch3 + ch3 (+M) <=> c2h6 (+M)", (2.12e16, -0.97, 620.0),
+       (1.77e50, -9.67, 6220.0), (0.5325, 151.0, 1038.0, 4970.0))
+    el("c2h6 + oh <=> c2h5 + h2o", 3.54e6, 2.12, 870.0)
+    el("c2h6 + h <=> c2h5 + h2", 1.15e8, 1.9, 7530.0)
+    el("c2h6 + o <=> c2h5 + oh", 8.98e7, 1.92, 5690.0)
+    el("c2h6 + ho2 <=> c2h5 + h2o2", 1.32e13, 0.0, 20470.0)
+    el("c2h6 + ch3 <=> c2h5 + ch4", 6.14e6, 1.74, 10450.0)
+    el("ch3 + ch3 <=> c2h5 + h", 6.84e12, 0.1, 10600.0)
+    el("ch3 + ho2 <=> ch3o + oh", 1.34e13, 0.0, 0.0)
+    fo("ch3o (+M) <=> ch2o + h (+M)", (6.8e13, 0.0, 26170.0),
+       (1.867e25, -3.0, 24307.0), (0.9, 2500.0, 1300.0, 1e30))
+    el("ch3o + o2 <=> ch2o + ho2", 4.28e-13, 7.6, -3530.0)
+    fo("hco + h (+M) <=> ch2o (+M)", (1.09e12, 0.48, -260.0),
+       (2.47e24, -2.57, 425.0), (0.7824, 271.0, 2755.0, 6570.0))
+    el("c2h4 + oh <=> c2h3 + h2o", 3.6e6, 2.0, 2500.0)
+    el("c2h4 + h <=> c2h3 + h2", 1.325e6, 2.53, 12240.0)
+    el("c2h3 + o2 => ch2o + hco", 4.58e16, -1.39, 1015.0)
+    el("ch3 + o2 <=> ch3o2", 1.0e12, 0.0, 0.0)
+    el("ch3o2 + ho2 => ch3o2h + o2", 2.47e11, 0.0, -1570.0)
+    el("ch3o2h => ch3o + oh", 6.31e14, 0.0, 42300.0)
+    el("ch3o2 + ch3 => ch3o + ch3o", 5.08e12, 0.0, -1411.0)
+    el("c2h5 + o2 <=> c2h5o2", 1.0e12, 0.0, 0.0)
+    el("c2h5o2 => c2h4 + ho2", 5.0e11, 0.0, 28000.0)
+    el("ch3cho + oh => ch3 + co + h2o", 3.37e12, 0.0, -619.0)
+    el("ch3cho + h => ch3 + co + h2", 4.1e9, 1.16, 2400.0)
+    el("ch3cho + ho2 => ch3 + co + h2o2", 3.0e12, 0.0, 12000.0)
+
+    # H abstraction from an alkane by each radical, with its class's A, b
+    # and Ea ranges
+    abstractors = [("oh", "h2o", (5.5, 6.5), 2.0, (-800.0, 800.0)),
+                   ("h", "h2", (5.5, 6.5), 2.4, (2500.0, 4500.0)),
+                   ("o", "oh", (5.0, 6.0), 2.5, (1500.0, 3000.0)),
+                   ("ho2", "h2o2", (3.5, 4.5), 2.6, (13500.0, 16500.0)),
+                   ("ch3", "ch4", (0.0, 1.0), 3.5, (6000.0, 12000.0)),
+                   ("o2", "ho2", (13.0, 13.7), 0.0, (47500.0, 50500.0)),
+                   ("ch3o2", "ch3o2h", (12.0, 12.7), 0.0,
+                    (17000.0, 20000.0)),
+                   ("c2h3", "c2h4", (11.5, 12.3), 0.0, (16000.0, 18500.0)),
+                   ("c2h5", "c2h6", (10.5, 11.5), 0.0, (12500.0, 14500.0)),
+                   ("hco", "ch2o", (6.5, 7.5), 1.9, (16000.0, 18000.0))]
+
+    def abstraction(alkane, radical, which=slice(None)):
+        for x, xh, la, b, ea in abstractors[which]:
+            el(f"{alkane} + {x} <=> {radical} + {xh}", 10 ** u(*la), b,
+               u(*ea))
+
+    def alkyl(n, j=1):
+        return f"c12h25-{j}" if n == 12 else rad(n)
+
+    # the fuel: abstraction to each dodecyl isomer, its scissions and O2
+    # chemistry
+    for j in range(1, 7):
+        abstraction("c12h26", f"c12h25-{j}", slice(0, 6))
+    for j in range(1, 7):
+        r = f"c12h25-{j}"
+        m = j + 1                       # alkene size of this isomer's
+        el(f"{r} <=> c{m}h{2 * m} + {rad(12 - m)}", 10 ** u(12.8, 13.5),
+           0.0, u(28000.0, 30500.0))
+        el(f"{r} => 6 c2h4 + h", 10 ** u(12.0, 12.5), 0.0,
+           u(29000.0, 31000.0))
+        el(f"{r} + o2 <=> c12h24 + ho2", 10 ** u(10.5, 11.5), 0.0,
+           u(2000.0, 5000.0))
+        el(f"{r} + o2 <=> c12h25o2", 10 ** u(12.0, 12.7), 0.0, 0.0)
+        if j > 1:
+            el(f"c12h25-1 <=> {r}", 10 ** u(11.0, 12.0), 0.0,
+               u(20000.0, 25000.0))
+            el(f"{r} <=> c2h4 + c10h21", 10 ** u(12.8, 13.5), 0.0,
+               u(28000.0, 30500.0))
+    for k in range(1, 7):
+        tb(f"c12h26 + M <=> {alkyl(k) if k > 2 else ('ch3', 'c2h5')[k - 1]}"
+           f" + {alkyl(12 - k)} + M", 10 ** u(19.5, 20.5), 0.0,
+           u(80000.0, 84000.0))
+
+    # each carbon number's families, the fuel's first, then n = 11..3
+    def small_rad(n):
+        return {1: "ch3", 2: "c2h5"}.get(n, rad(n))
+
+    def small_alkene(n):
+        return "c2h4" if n == 2 else f"c{n}h{2 * n}"
+
+    for n in range(12, 2, -1):
+        r, alkene = alkyl(n), f"c{n}h{2 * n}"
+        ro2, qooh = f"c{n}h{2 * n + 1}o2", f"c{n}ooh"
+        o2qooh, ket = f"c{n}o2ooh", f"c{n}ket"
+        el(f"{ro2} <=> {qooh}", 10 ** u(10.5, 11.5), 0.0,
+           u(21000.0, 25000.0))
+        el(f"{qooh} + o2 <=> {o2qooh}", 10 ** u(11.0, 11.8), 0.0, 0.0)
+        el(f"{o2qooh} => {ket} + oh", 10 ** u(10.5, 11.5), 0.0,
+           u(17000.0, 21000.0))
+        el(f"{ket} => oh + ch2o + co + {small_rad(n - 2)}",
+           10 ** u(15.5, 16.2), 0.0, u(39000.0, 42000.0))
+        el(f"{qooh} <=> {alkene} + ho2", 10 ** u(12.5, 13.5), 0.0,
+           u(24000.0, 27000.0))
+        el(f"{qooh} => oh + ch2o + {small_alkene(n - 1)}",
+           10 ** u(12.5, 13.3), 0.0, u(20000.0, 23000.0))
+        el(f"{ro2} + ho2 => {ket} + h2o", 10 ** u(11.0, 11.5), 0.0,
+           u(-1500.0, -1000.0))
+        el(f"{alkene} + oh => ch2o + {small_rad(n - 1)}", 10 ** u(12.3, 13.0),
+           0.0, u(-1000.0, 0.0))
+        el(f"{alkene} + o => hco + {small_rad(n - 1)}", 10 ** u(12.5, 13.2),
+           0.0, u(500.0, 1500.0))
+        el(f"{alkene} + oh => ch3cho + {small_rad(n - 2)}",
+           10 ** u(11.5, 12.3), 0.0, u(-500.0, 500.0))
+        el(f"{alkene} + ho2 => ch2o + oh + {small_alkene(n - 1)}",
+           10 ** u(11.0, 12.0), 0.0, u(13000.0, 15000.0))
+        if n >= 4:
+            el(f"{alkene} + h <=> c2h4 + {small_rad(n - 2)}",
+               10 ** u(12.5, 13.3), 0.0, u(2000.0, 3500.0))
+        el(f"{r} + ho2 => ch2o + oh + {small_rad(n - 1)}",
+           10 ** u(12.5, 13.3), 0.0, 0.0)
+        el(f"{r} + o => ch2o + {small_rad(n - 1)}", 10 ** u(13.0, 13.7),
+           0.0, 0.0)
+        el(f"{r} + o2 => ch2o + oh + {small_alkene(n - 1)}",
+           10 ** u(11.0, 12.0), 0.0, u(7000.0, 10000.0))
+        el(f"{ro2} => {alkene} + ho2", 10 ** u(11.5, 12.5), 0.0,
+           u(28000.0, 31000.0))
+        el(f"{ro2} + h => oh + ch2o + {small_rad(n - 1)}",
+           10 ** u(13.0, 13.7), 0.0, 0.0)
+        el(f"{r} + oh => ch2o + h + {small_rad(n - 1)}",
+           10 ** u(13.0, 13.5), 0.0, 0.0)
+        el(f"{r} + ch3o2 => ch3o + ch2o + {small_rad(n - 1)}",
+           10 ** u(12.5, 13.0), 0.0, u(-1500.0, -1000.0))
+        if n >= 4:
+            el(f"{alkene} + o2 => ch2o + ch2o + {small_alkene(n - 2)}",
+               10 ** u(12.5, 13.3), 0.0, u(36000.0, 40000.0))
+        if n == 12:
+            for j in range(1, 7):
+                abstraction("c12h26", f"c12h25-{j}", slice(6, None))
+            continue
+        alkane = f"c{n}h{2 * n + 2}"
+        abstraction(alkane, r)
+        tb(f"{alkane} + M <=> ch3 + {small_rad(n - 1)} + M",
+           10 ** u(19.5, 20.5), 0.0, u(80000.0, 84000.0))
+        fo(f"{alkene} + h (+M) <=> {r} (+M)",
+           (10 ** u(12.9, 13.3), 0.0, u(2500.0, 3500.0)),
+           (10 ** u(38.5, 39.0), -6.66, u(6500.0, 7500.0)),
+           (1.0, 1000.0, 1310.0, 48097.0))
+        el(f"{r} <=> c2h4 + {small_rad(n - 2)}", 10 ** u(12.8, 13.5), 0.0,
+           u(28000.0, 30500.0))
+        for k in range(3, n):
+            el(f"{r} <=> c{k}h{2 * k} + {small_rad(n - k)}",
+               10 ** u(12.8, 13.5), 0.0, u(28000.0, 30500.0))
+        el(f"{r} + o2 <=> {alkene} + ho2", 10 ** u(10.5, 11.5), 0.0,
+           u(2000.0, 5000.0))
+        el(f"{r} + o2 <=> {ro2}", 10 ** u(12.0, 12.7), 0.0, 0.0)
+        el(f"{alkene} + ch3 => {small_rad(n + 1) if n < 11 else alkyl(12)}",
+           10 ** u(11.0, 11.7), 0.0, u(7000.0, 8500.0))
+        el(f"{r} + h <=> {alkane}", 10 ** u(13.5, 14.2), 0.0, 0.0)
+
+    def species_of(eq):
+        out = set()
+        for side in eq.replace("(+M)", "").split("=>" if "<=>" not in eq
+                                                 else "<=>"):
+            for term in side.split(" + "):
+                term = term.strip()
+                if term and term != "M":
+                    out.add(term.split()[-1])
+        return out
+
+    quota = {"falloff": n_falloff, "three-body": n_three_body,
+             "elementary": nrxn - n_falloff - n_three_body}
+    if quota["elementary"] < 0:
+        raise ValueError("more falloff and three-body reactions than nrxn")
+    chosen, seen = [], set()
+    for eq, kind, rate in cands:
+        if quota[kind] == 0 or not species_of(eq) <= have or eq in seen:
+            continue
+        quota[kind] -= 1
+        seen.add(eq)
+        chosen.append((eq, kind, rate))
+    if any(quota.values()):
+        raise ValueError(f"not enough reactions among {nspec} species: "
+                         f"{quota} short")
+
+    def arr(A, b, Ea):
+        return f"{{A: {A:.6e}, b: {b}, Ea: {Ea:.3f}}}"
+
+    lines.append("reactions:")
+    for eq, kind, rate in chosen:
+        lines.append(f"- equation: {eq}")
+        if kind == "elementary":
+            lines.append(f"  rate-constant: {arr(**rate)}")
+            continue
+        effs = {k: v for k, v in effs_all.items() if k in have}
+        if kind == "three-body":
+            lines += ["  type: three-body",
+                      f"  rate-constant: {arr(**rate)}"]
+        else:
+            a, t3, t1, t2 = rate["troe"]
+            lines += ["  type: falloff",
+                      f"  low-P-rate-constant: {arr(*rate['lo'])}",
+                      f"  high-P-rate-constant: {arr(*rate['hi'])}",
+                      f"  Troe: {{A: {a}, T3: {t3}, T1: {t1}"
+                      + (f", T2: {t2}}}" if t2 else "}")]
+        lines.append("  efficiencies: {" + ", ".join(
+            f"{k}: {v}" for k, v in effs.items()) + "}")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return {"nspec": nspec, "nrxn": len(chosen),
+            "n_falloff": n_falloff, "n_three_body": n_three_body,
+            "candidates": len(cands)}
 
 
 def _erdos_renyi(n: int, avg_deg: int, seed: int):
@@ -922,6 +1464,225 @@ def _deepmd_train(dev) -> None:
          restart_steps=5, restart_rmse_f_first=f"{restart_f[0]:.4g}",
          frozen_vs_trained_e_rel=f"{frozen_err:.3g}",
          tol=DEEPMD_FREEZE_F32_TOL,
+         hand_kernel_launches=sum(mod.LAUNCHES for mod in launch_mods))
+
+
+def _sync_ms(fn, reps: int = 10) -> float:
+    """Median host wall ms of one fn() call, synchronized before and
+    after: the time a host-bound caller waits for it."""
+    import statistics
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _syncs(fn) -> int:
+    """How many times one fn() call makes the host wait for the device, as
+    torch.cuda's sync debug mode reports them."""
+    import warnings
+    import torch
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _cantera_shock_tube(dev) -> None:
+    """Phase 13: Cantera's NonIdealShockTube protocol on the card, at the
+    n-dodecane mechanism's size (a synthetic mechanism with its counts,
+    _synthetic_mechanism_yaml, seed CANTERA_SEED; nDodecane_Reitz.yaml is
+    not in the repository). (1) The CLI, `python -m
+    g4s_tpu_torch.drivers.shock_tube --mech FILE` through its main() on
+    its default device (the card): ShockTubeBenchmark.run_single at
+    1000 K and 40 atm with rtol 1e-8 and atol 1e-14; per phase
+    (Redlich-Kwong RG, ideal IG) tau, BDF steps, n_fev, n_jev, wall s and
+    host reads per step; device kernels and busy ms per step from a
+    profiled window of CANTERA_WINDOW steps from the state at tau/2 (the
+    solver's set-up, one RHS, one Jacobian and one LU, taken out), the
+    host waits on the device in that window (torch.cuda's sync debug
+    mode), and the idle share against the run's wall per step. (2) host
+    wall ms (synchronized), kernels, busy ms and host waits per call of
+    one RHS, one jacfwd Jacobian and one LU factor + solve at n = 101.
+    (3) f64, the card against the host CPU: RHS and Jacobian at y0 and at
+    tau/2 within CANTERA_F64_TOL of the largest entry, the initial state
+    within CANTERA_Y0_TOL, and the CPU's run_single, stopped at
+    CANTERA_CPU_T_END_OVER_TAU times the card's tau: tau within
+    CANTERA_TAU_TOL. (4) The card's run: success, each element
+    within CANTERA_ELEMENT_TOL and U within CANTERA_U_TOL of their initial
+    values, a temperature rise of at least CANTERA_T_RISE, and the RK tau
+    apart from the IG tau. No hand kernel lies on this path (launch counts
+    printed, 0)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from g4s_tpu_torch.drivers import shock_tube as shock_tube_cli
+    from g4s_tpu_torch.models.cantera import (R_GAS, ShockTubeBenchmark,
+                                              stoich_mixture)
+    from g4s_tpu_torch.obs.timings import device_activities
+    from g4s_tpu_torch.ops import bwell_spmv, odeint, route, segment, \
+        wsell_spmv
+
+    launch_mods = (route, wsell_spmv, bwell_spmv, segment)
+    for mod in launch_mods:
+        mod.LAUNCHES = 0
+    cpu = torch.device("cpu")
+    T0, P0, rtol, atol = 1000.0, 40 * 101325.0, 1e-8, 1e-14
+    tmp = tempfile.TemporaryDirectory()
+    path = os.path.join(tmp.name, "ndodecane_synthetic.yaml")
+    _synthetic_mechanism_yaml(path, seed=CANTERA_SEED, **CANTERA_COUNTS)
+    t0 = time.perf_counter()
+    bench = ShockTubeBenchmark(path, device=dev)
+    load_s = time.perf_counter() - t0
+    host = ShockTubeBenchmark(path, device=cpu)
+    m = bench.mech_rk
+    imbalance = float(np.abs((m.nu_prod - m.nu_reac) @ m.mol_weights).max())
+    i = m.species_index("c12h26")
+    tc = (m.rk_a[i, 0] * 0.08664 / (0.42748 * R_GAS * m.rk_b[i])) ** (2 / 3)
+    kin = bench.r_rk.kin
+    layouts = {g.variant for g in (kin.g_reac, kin.g_prod, kin.g_net)}
+    counts = (m.nspec, m.nrxn, int(m.is_falloff.sum()),
+              int(m.is_three_body.sum()))
+    _check(counts == tuple(CANTERA_COUNTS.values()) and imbalance <= 1e-10
+           and 600.0 < tc < 700.0 and layouts == {"dense"},
+           f"synthetic mechanism: counts {counts}, mass imbalance "
+           f"{imbalance}, c12h26 Tc {tc}, stoichiometry layouts {layouts}")
+    _say("13-cantera-mechanism", species=counts[0], reactions=counts[1],
+         falloff=counts[2], three_body=counts[3], seed=CANTERA_SEED,
+         mass_imbalance=f"{imbalance:.3g}", c12h26_Tc=f"{tc:.3f}",
+         stoich_layout="dense", load_s=f"{load_s:.2f}")
+
+    # ---- 1: the protocol through the CLI, on its default device ----
+    t0 = time.perf_counter()
+    out = shock_tube_cli.main(["--mech", path])
+    run_s = time.perf_counter() - t0
+    phases = {"RG": (bench.r_rk, host.r_rk), "IG": (bench.r_ig, host.r_ig)}
+    n = m.nspec + 1
+    for name, (r, r_cpu) in phases.items():
+        res, tau = out[f"result_{name}"], out[f"tau_{name}"]
+        wall = out[f"wall_{name}"]
+        X = stoich_mixture(r.mech)
+        y0 = r.initial_state(T0, P0, X)
+        # ---- 4: the card's run holds the reference's invariants ----
+        y1 = res.y
+        el_err = 0.0
+        for el in ("C", "H", "O", "N"):
+            n_el = torch.as_tensor([c.get(el, 0.0) for c in
+                                    r.mech.compositions], dtype=y0.dtype,
+                                   device=dev)
+            before = float(torch.dot(y0[1:], n_el))
+            after = float(torch.dot(y1[1:], n_el))
+            el_err = max(el_err, abs(after - before) / before)
+        u0 = float(r._U_vol(y0[0], y0[1:]))
+        u1 = float(r._U_vol(y1[0], torch.clamp_min(y1[1:], 0.0)))
+        u_err = abs(u1 - u0) / abs(u0)
+        t_rise = float(y1[0]) - T0
+        _say(f"13-cantera-run-{name}", tau_us=f"{tau * 1e6:.4f}",
+             steps=res.steps, n_fev=res.n_fev, n_jev=res.n_jev,
+             wall_s=f"{wall:.3f}",
+             wall_ms_per_step=f"{wall / res.steps * 1e3:.4f}",
+             host_reads_per_step=f"{res.host_reads / res.steps:.3f}",
+             T_end=f"{float(y1[0]):.3f}", element_rel_err=f"{el_err:.3g}",
+             U_rel_err=f"{u_err:.3g}")
+        _check(res.success and el_err <= CANTERA_ELEMENT_TOL
+               and u_err <= CANTERA_U_TOL and t_rise >= CANTERA_T_RISE,
+               f"shock tube {name} on the card: success {res.success}, "
+               f"elements {el_err}, U {u_err}, T rise {t_rise}")
+
+        # ---- 2: the parts, at the state at tau/2 ----
+        y_half = r.advance(y0, tau / 2, rtol=CANTERA_HALF_RTOL,
+                           atol=atol).y
+        jac = torch.func.jacfwd(r.rhs, argnums=1)
+        eye = torch.eye(n, dtype=y0.dtype, device=dev)
+        J = jac(0.0, y_half)
+
+        def lu():
+            LU, piv, _ = torch.linalg.lu_factor_ex(eye - 1e-7 * J)
+            return torch.linalg.lu_solve(LU, piv, y_half[:, None])
+
+        def window():
+            return odeint.bdf_solve(r.rhs, y_half, 0.0, 1.0, rtol=rtol,
+                                    atol=atol, max_steps=CANTERA_WINDOW)
+
+        parts = {}
+        for part, fn in (("rhs", lambda: r.rhs(0.0, y_half)),
+                         ("jac", lambda: jac(0.0, y_half)), ("lu", lu)):
+            acts = device_activities(fn)
+            parts[part] = (_sync_ms(fn), len(acts),
+                           sum(us for _, us in acts) / 1e3, _syncs(fn))
+        acts = device_activities(window)
+        res_w = window()
+        syncs_w = _syncs(window)
+        k_step = (len(acts) - sum(v[1] for v in parts.values())) \
+            / res_w.steps
+        busy_step = (sum(us for _, us in acts) / 1e3
+                     - sum(v[2] for v in parts.values())) / res_w.steps
+        wall_step = wall / res.steps * 1e3
+        _say(f"13-cantera-parts-{name}", n=n, **{
+            f"{p}_{k}": f"{v:.4f}" if isinstance(v, float) else v
+            for p, vals in parts.items()
+            for k, v in zip(("wall_ms", "kernels", "busy_ms", "syncs"),
+                            vals)})
+        _say(f"13-cantera-step-{name}", window_steps=res_w.steps,
+             window_host_reads=res_w.host_reads, window_syncs=syncs_w,
+             device_kernels_per_step=f"{k_step:.1f}",
+             device_busy_ms_per_step=f"{busy_step:.4f}",
+             run_wall_ms_per_step=f"{wall_step:.4f}",
+             device_idle_share=f"{max(0.0, 1 - busy_step / wall_step):.3f}")
+
+        # ---- 3: f64, the card against the host CPU ----
+        y0_c = r_cpu.initial_state(T0, P0, X)
+        y0_err = _rel_err(y0.cpu(), y0_c)
+        errs = {}
+        for where, y in (("y0", y0), ("tau_half", y_half)):
+            y_c = y.cpu()
+            errs[f"rhs_{where}"] = _rel_err(r.rhs(0.0, y).cpu(),
+                                            r_cpu.rhs(0.0, y_c))
+            errs[f"jac_{where}"] = _rel_err(
+                jac(0.0, y).cpu(),
+                torch.func.jacfwd(r_cpu.rhs, argnums=1)(0.0, y_c))
+        _check(y0_err <= CANTERA_Y0_TOL
+               and max(errs.values()) <= CANTERA_F64_TOL,
+               f"shock tube {name}, card against host CPU: initial state "
+               f"{y0_err}, {errs}")
+        phases[name] = (r, r_cpu, res, tau, y0_err, errs)
+
+    t_end = min(0.005, CANTERA_CPU_T_END_OVER_TAU
+                * max(out["tau_RG"], out["tau_IG"]))
+    t0 = time.perf_counter()
+    out_c = host.run_single(T0, P0, rtol=rtol, atol=atol, t_end=t_end)
+    cpu_s = time.perf_counter() - t0
+    for name, (r, r_cpu, res, tau, y0_err, errs) in phases.items():
+        tau_c, res_c = out_c[f"tau_{name}"], out_c[f"result_{name}"]
+        tau_err = abs(tau - tau_c) / tau_c
+        _check(tau_err <= CANTERA_TAU_TOL,
+               f"shock tube {name}: tau {tau} on the card, {tau_c} on the "
+               f"host CPU")
+        _say(f"13-cantera-card-vs-cpu-{name}",
+             cpu_t_end_ms=f"{t_end * 1e3:.4f}", y0_rel_err=f"{y0_err:.3g}",
+             **{k: f"{v:.3g}" for k, v in errs.items()},
+             tol=CANTERA_F64_TOL, tau_card_us=f"{tau * 1e6:.4f}",
+             tau_cpu_us=f"{tau_c * 1e6:.4f}", tau_rel_err=f"{tau_err:.3g}",
+             steps_card=res.steps, steps_cpu=res_c.steps,
+             cpu_wall_s=f"{out_c[f'wall_{name}']:.3f}")
+    _check(out["tau_RG"] != out["tau_IG"],
+           f"RK and IG ignition delays equal: {out['tau_RG']}")
+    tmp.cleanup()
+    _say("13-cantera", cli_run_s=f"{run_s:.3f}",
+         tau_RG_over_IG=f"{out['tau_RG'] / out['tau_IG']:.6f}",
+         cpu_run_single_s=f"{cpu_s:.3f}",
          hand_kernel_launches=sum(mod.LAUNCHES for mod in launch_mods))
 
 
@@ -1808,6 +2569,9 @@ def main() -> int:
 
     # ---- 12: DeePMD training at the flagship width ----------------------
     _deepmd_train(dev)
+
+    # ---- 13: Cantera's NonIdealShockTube at the dodecane size ------------
+    _cantera_shock_tube(dev)
 
     sources = {"permute_gather": "g4s_tpu_torch/csrc/permute.cu",
                "wsell_spmv": "g4s_tpu_torch/csrc/wsell_spmv.cu",

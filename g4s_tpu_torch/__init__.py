@@ -9,14 +9,16 @@ names so each counterpart is easy to find, and imports neither `jax` nor
   g4s_tpu_torch.ops      — SpMV layouts, segment ops, the permute, WSELL-K
                            and BWELL kernels' wrappers, the streaming SpMV,
                            stream shifts, SpGEMM (two-phase, ESC, block
-                           ESC), dense BLAS2
+                           ESC), dense BLAS2, the variable-order BDF
   g4s_tpu_torch.engine   — build_graph / mxv / vxm / mxm dispatch,
                            operator forms, semirings, GAS
   g4s_tpu_torch.obs      — stage timings and the device timer
   g4s_tpu_torch.models   — workloads: the regional CitcomS step, the
-                           DeePMD se_e2_a serving path
+                           DeePMD se_e2_a serving and training paths,
+                           Cantera's zero-D NonIdealShockTube path
   g4s_tpu_torch.drivers  — the mm/ and mv/ benchmark and regression
-                           drivers, the CitcomSRegional and dp CLIs
+                           drivers, the CitcomSRegional, dp and
+                           shock_tube CLIs
   g4s_tpu_torch.kernels  — the nvcc build and ctypes loader of csrc/*.cu
 
 Entry points take `device="cuda"` by default; pass device="cpu" to run on

@@ -1,1 +1,2 @@
-"""Workload models ported from g4s_tpu.models: CitcomS and DeePMD."""
+"""Workload models ported from g4s_tpu.models: CitcomS, DeePMD and
+Cantera's NonIdealShockTube path."""

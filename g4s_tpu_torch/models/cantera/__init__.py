@@ -1,0 +1,32 @@
+"""Cantera's zero-D NonIdealShockTube path (counterpart of
+g4s_tpu/models/cantera): the YAML mechanism loader, NASA7/NASA9/Shomate
+thermo with the Redlich-Kwong and Peng-Robinson real-gas phases,
+mass-action kinetics through the graph engine (mxv/vxm), the constant-
+volume and constant-pressure reactors, reactor networks and the shock-tube
+protocol; the integrator is g4s_tpu_torch.ops.odeint.bdf_solve.
+
+Not ported yet: equilibrium, transport, flames, surfaces, electrolytes and
+the other phases (ROADMAP.md queue 1, "The rest of Cantera"); the banded
+BDF, sensitivities, the DAE solver and the batched and sharded NTC sweeps
+(ROADMAP.md queue 1, "The Cantera integrator tail").
+"""
+from g4s_tpu_torch.models.cantera.mech import (  # noqa: F401
+    Mechanism, load_mechanism, mechanism_from_reference, R_GAS, P_REF,
+)
+from g4s_tpu_torch.models.cantera.kinetics import (  # noqa: F401
+    build_kinetics, net_production_rates, rates_of_progress,
+    forward_rate_constants, equilibrium_constants,
+)
+from g4s_tpu_torch.models.cantera.thermo import (  # noqa: F401
+    GasState, cp0_R, h0_RT, s0_R, rk_mix, rk_molar_volume, rk_pressure,
+    pr_mix, pr_molar_volume, pr_pressure, pr_departures,
+)
+from g4s_tpu_torch.models.cantera.reactor import (  # noqa: F401
+    IdealGasConstPressureReactor, IdealGasConstVolumeReactor,
+)
+from g4s_tpu_torch.models.cantera.network import (  # noqa: F401
+    ReactorNet, Reservoir, Wall, MassFlowController, Valve,
+)
+from g4s_tpu_torch.models.cantera.shock_tube import (  # noqa: F401
+    ShockTubeBenchmark, ignition_delay, stoich_mixture, NTC_TEMPERATURES,
+)

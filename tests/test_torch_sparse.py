@@ -64,7 +64,9 @@ def test_package_imports_no_jax():
             "g4s_tpu_torch.models.deepmd.train, "
             "g4s_tpu_torch.models.deepmd.fit_dos, "
             "g4s_tpu_torch.models.deepmd.fit_tensor, "
-            "g4s_tpu_torch.models.deepmd.spin; "
+            "g4s_tpu_torch.models.deepmd.spin, "
+            "g4s_tpu_torch.models.cantera, g4s_tpu_torch.ops.odeint, "
+            "g4s_tpu_torch.drivers.shock_tube; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'g4s_tpu.')) or m == 'g4s_tpu'); "
             "print(bad); sys.exit(1 if bad else 0)")
