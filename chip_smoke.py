@@ -130,6 +130,27 @@ Run from the root of a checkout: `python3 chip_smoke.py`. It
      in the reference (its stoichiometric products are dense XLA dots,
      its LU is XLA's), so no hand kernel does here (launch counts
      printed, 0).
+ 14. the rest of regional CitcomS at Cookbook2's 33x33x9 nodes: in f64,
+     Solver=multigrid (levels 3: 33x33x9, 17x17x5, 9x9x3; 8-color
+     Gauss-Seidel smoothing) through its initial solve and 2 steps, on the
+     card against the host CPU within 1e-10 with equal Uzawa and V-cycle
+     counts and two card runs bitwise equal, its initial vrms within 1e-3
+     of phase 9's CG; in f32 5 timed steps after a warm-up, s/step,
+     V-cycles, host syncs, device kernels, busy ms and idle share per step
+     beside phase 9's CG numbers; the thermochemical step (10 tracers per
+     element, 81,920, seed 0, buoyancy ratio 1): 3 f64 steps on the card
+     against the host CPU, positions within 1e-10 and element compositions
+     equal, then f32 ms/step; one f64 step each of phase changes, TALA
+     with latent heat, anisotropic viscosity, lith_age from an age file
+     and velocity + temperature bc files (written by the script): on the
+     card as the CLI runs it (its counts printed), and with every solver
+     loop at a fixed cap on the card against the host CPU within 1e-10,
+     as phase 9's fixed-count step; the CLI on the card
+     (storage_spacing 2, checkpoint_frequency 2, 4 steps in a temporary
+     datadir: its files listed), `--restart` from the step-2 checkpoint
+     reaching step 4 bitwise, and SIGTERM to a running CLI writing a
+     checkpoint at the step it stops. The segment-sum kernel's launches
+     over the phase join phase 9's in the kernels line.
 
 Device times are medians per call between back-to-back calls queued
 behind a device sleep (g4s_tpu_torch.obs.timings.device_ms); "cold" times
@@ -210,6 +231,14 @@ CANTERA_T_RISE = 500.0
 CANTERA_CPU_T_END_OVER_TAU = 1.25
 CANTERA_HALF_RTOL = 1e-6
 CANTERA_WINDOW = 40
+# the rest of regional CitcomS (phase 14): multigrid, the thermochemical
+# step and one step of each other branch, f64 on the card against the host
+# CPU relative to each field's largest magnitude; multigrid's initial vrms
+# against CG's (tests/test_citcoms.py:386-400 holds the two solvers' V to
+# 1e-3); tracers per element of the thermochemical run (81,920 tracers)
+CITCOMS_TAIL_TOL = 1e-10
+CITCOMS_MG_VRMS_TOL = 1e-3
+CITCOMS_TRACERS_PER_ELEMENT = 10
 
 
 def _say(phase: str, **kw) -> None:
@@ -1686,6 +1715,318 @@ def _cantera_shock_tube(dev) -> None:
          hand_kernel_launches=sum(mod.LAUNCHES for mod in launch_mods))
 
 
+def _timed_steps(s, steps: int, step):
+    """`steps` synchronized steps of `step(s) -> (s, diag)`: wall s/step,
+    inner iterations and host syncs per step, and the last state."""
+    import torch
+    from g4s_tpu_torch.models.citcoms import solvers
+    torch.cuda.synchronize()
+    solvers.HOST_SYNCS = 0
+    inner = 0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        s, d = step(s)
+        inner += d.inner_iterations
+    torch.cuda.synchronize()
+    return {"s": s, "wall_s": (time.perf_counter() - t0) / steps,
+            "inner": inner / steps,
+            "host_syncs": solvers.HOST_SYNCS / steps}
+
+
+def _profiled_step(step, s):
+    """Device kernels, busy ms and segment sums of one more step(s) under
+    torch.profiler."""
+    from g4s_tpu_torch.obs.timings import device_activities
+    acts = device_activities(lambda: step(s))
+    return {"kernels": len(acts),
+            "busy_ms": sum(us for _, us in acts) / 1e3,
+            "segment_sums": sum("sorted_segment_sum_kernel" in name
+                                for name, _ in acts)}
+
+
+def _state_err(a, b, names=("T", "Tdot", "V", "P", "dt", "time")) -> dict:
+    return {k: _rel_err(getattr(a, k).cpu(), getattr(b, k).cpu())
+            for k in names}
+
+
+def _to_host(model_h, s):
+    from g4s_tpu_torch.models.citcoms import state_from_numpy
+    return state_from_numpy(model_h, dict(
+        {k: getattr(s, k).cpu() for k in ("T", "Tdot", "V", "P", "time",
+                                          "dt")}, step=s.step))
+
+
+def _citcoms_tail(dev, cookbook2, cg9: dict) -> dict:
+    """Phase 14: the rest of regional CitcomS at Cookbook2's 33x33x9 nodes
+    (multigrid, thermochemical tracers, phase changes, TALA, anisotropy,
+    lith_age, bc files, the CLI's output, checkpoints, restart and
+    graceful stop). `cg9` carries phase 9's CG numbers, printed beside
+    multigrid's. Returns the segment-sum kernel's launches over the phase's
+    card runs."""
+    import shutil
+    import signal
+    import tempfile
+    import numpy as np
+    import torch
+    from g4s_tpu_torch.drivers import citcoms_regional
+    from g4s_tpu_torch.models.citcoms import CitcomModel, bc_files, tracers
+    from g4s_tpu_torch.models.citcoms.observables import rms_velocity
+    from g4s_tpu_torch.ops import segment
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    f64 = torch.float64
+    tol = CITCOMS_TAIL_TOL
+    segment.LAUNCHES = 0
+
+    # ---- (a) Solver=multigrid, levels 3: 33x33x9 -> 17x17x5 -> 9x9x3 ----
+    mgcfg = dataclasses.replace(cookbook2, solver_type="multigrid", levels=3)
+
+    def mg_run(model, steps=2):
+        """[(state, (Uzawa, V-cycles))] after the initial solve and each
+        step."""
+        s, mon = model.initial_solve(model.init_state())
+        states = [(s, (mon.outer_iterations, mon.inner_iterations))]
+        for _ in range(steps):
+            s, d = model.step(s)
+            states.append((s, (d.uzawa_iterations, d.inner_iterations)))
+        return states
+
+    t0 = time.perf_counter()
+    mg64 = CitcomModel(mgcfg, dtype=f64, device=dev)
+    build_s = time.perf_counter() - t0
+    levels = ",".join(f"{lv.cfg.nodex}x{lv.cfg.nodey}x{lv.cfg.nodez}"
+                      for lv in mg64.mg.levels)
+    _check(len(mg64.mg.levels) == 3, f"multigrid levels {levels}")
+    run_a = mg_run(mg64)
+    run_b = mg_run(mg64)
+    _check(all(ca == cb and all(torch.equal(getattr(sa, k), getattr(sb, k))
+                                for k in ("T", "Tdot", "V", "P", "dt"))
+               for (sa, ca), (sb, cb) in zip(run_a, run_b)),
+           "multigrid f64: two card runs differ")
+    mg_h = CitcomModel(mgcfg, dtype=f64, device="cpu")
+    t0 = time.perf_counter()
+    run_h = mg_run(mg_h)
+    host_s = time.perf_counter() - t0
+    mg_err = []
+    for (sg, cg_), (sh, ch) in zip(run_a, run_h):
+        _check(cg_ == ch, f"multigrid f64 counts, card {cg_} host CPU {ch}")
+        e = _state_err(sg, sh, ("T", "V", "P", "dt") if sg.step else
+                       ("V", "P"))
+        mg_err.append(max(e.values()))
+    _check(max(mg_err) <= tol,
+           f"multigrid f64, card against host CPU: {mg_err}")
+    vrms_mg = float(rms_velocity(mg64, run_a[0][0].V))
+    vrms_rel = abs(vrms_mg - cg9["vrms0"]) / cg9["vrms0"]
+    _check(vrms_rel <= CITCOMS_MG_VRMS_TOL,
+           f"multigrid initial vrms {vrms_mg} against CG {cg9['vrms0']}")
+    _say("14-multigrid-f64", levels=levels,
+         model_build_s=f"{build_s:.2f}", runs=2, deterministic=True,
+         uzawa_vcycles=",".join(f"{c[0]}/{c[1]}" for _, c in run_a),
+         rel_err_vs_host_cpu=",".join(f"{e:.3g}" for e in mg_err), tol=tol,
+         host_cpu_s=f"{host_s:.2f}", vrms0=f"{vrms_mg:.10g}",
+         cg_vrms0=f"{cg9['vrms0']:.10g}", vrms_rel=f"{vrms_rel:.3g}")
+    del run_b, run_h, mg_h
+    mg32 = CitcomModel(mgcfg, dtype=torch.float32, device=dev)
+    s32, _ = mg32.initial_solve(mg32.init_state())
+    s32, _ = mg32.step(s32)                                   # warm-up
+    t32 = _timed_steps(s32, 5, mg32.step)
+    p32 = _profiled_step(mg32.step, t32["s"])
+    wall = t32["wall_s"]
+    _say("14-multigrid-f32", warmup_steps=1, timed_steps=5,
+         s_per_step=f"{wall:.4f}", vcycles_per_step=t32["inner"],
+         host_syncs_per_step=t32["host_syncs"],
+         device_kernels_per_step=p32["kernels"],
+         device_busy_ms_per_step=f"{p32['busy_ms']:.2f}",
+         device_idle_share=f"{max(0.0, 1 - p32['busy_ms'] / 1e3 / wall):.3f}",
+         segment_sums_per_step=p32["segment_sums"],
+         cg_s_per_step=cg9["s_per_step"], cg_inner_per_step=cg9["inner"],
+         cg_host_syncs_per_step=cg9["host_syncs"],
+         cg_device_kernels_per_step=cg9["kernels"],
+         cg_device_busy_ms_per_step=cg9["busy_ms"],
+         cg_device_idle_share=cg9["idle"])
+    del mg64, mg32, s32, t32, run_a
+
+    # ---- (b) the thermochemical step: 10 tracers per element ------------
+    tcfg = dataclasses.replace(cookbook2, tracer=True, chemical_buoyancy=True,
+                               buoyancy_ratio=1.0)
+    tm = CitcomModel(tcfg, dtype=f64, device=dev)
+    tm_h = CitcomModel(tcfg, dtype=f64, device="cpu")
+    pos0, fl0 = tracers.seed_tracers(tm.mesh, CITCOMS_TRACERS_PER_ELEMENT,
+                                     seed=0, flavor_boundary_r=tcfg.z_interface)
+    s0, _ = tm.initial_solve(tm.init_state())
+    sg, sh = s0, _to_host(tm_h, s0)
+    pg = torch.from_numpy(pos0).to(dev)
+    ph = torch.from_numpy(pos0)
+    flg, flh = torch.from_numpy(fl0).to(dev), torch.from_numpy(fl0)
+    tf = tm.tracer_field
+    tr_err = []
+    for _ in range(3):
+        sg, dg, pg = tm.step_tracers(sg, pg, flg)
+        sh, dh, ph = tm_h.step_tracers(sh, ph, flh)
+        _check((dg.uzawa_iterations, dg.inner_iterations)
+               == (dh.uzawa_iterations, dh.inner_iterations),
+               f"thermochemical counts {dg} {dh}")
+        cg_, _ = tracers.element_composition(tf, pg, flg)
+        ch, _ = tracers.element_composition(tf, ph, flh)
+        _check(torch.equal(cg_.cpu(), ch),
+               "thermochemical f64: element compositions differ")
+        tr_err.append((_rel_err(pg.cpu(), ph),
+                       max(_state_err(sg, sh).values())))
+    _check(max(e for e, _ in tr_err) <= tol,
+           f"tracer positions, card against host CPU: {tr_err}")
+    _say("14-thermochemical-f64", tracers=pos0.shape[0], seed=0,
+         buoyancy_ratio=1.0, steps=3, compositions_equal=True,
+         pos_rel_err=",".join(f"{e:.3g}" for e, _ in tr_err),
+         field_rel_err=",".join(f"{e:.3g}" for _, e in tr_err), tol=tol)
+    del tm_h, sh, ph
+    tm32 = CitcomModel(tcfg, dtype=torch.float32, device=dev)
+    box = {"pos": torch.from_numpy(pos0).to(dev, torch.float32)}
+
+    def tstep(s):
+        s, d, box["pos"] = tm32.step_tracers(s, box["pos"], flg)
+        return s, d
+
+    s32, _ = tm32.initial_solve(tm32.init_state())
+    s32, _ = tstep(s32)                                       # warm-up
+    t32 = _timed_steps(s32, 3, tstep)
+    pr = _profiled_step(tstep, t32["s"])
+    _say("14-thermochemical-f32", tracers=pos0.shape[0], timed_steps=3,
+         ms_per_step=f"{t32['wall_s'] * 1e3:.2f}",
+         inner_cg_per_step=t32["inner"],
+         host_syncs_per_step=t32["host_syncs"],
+         device_kernels_per_step=pr["kernels"],
+         device_busy_ms_per_step=f"{pr['busy_ms']:.2f}",
+         device_idle_share=f"{max(0.0, 1 - pr['busy_ms'] / 1e3 / t32['wall_s']):.3f}")
+    del tm, tm32, s32, t32
+
+    # ---- (c) one f64 step of each other branch, card against host CPU ---
+    # The parameters of the reference's tests of each branch
+    # (tests/test_citcoms.py:763-940,1040-1187,2053-2110) on this mesh, from
+    # the state after the initial solve. Each step runs on the card as the
+    # CLI runs it (its counts printed), and on the card and the host CPU
+    # with every solver loop at a fixed cap (accuracy 0: 3 Uzawa iterations
+    # of 60 CG), held to CITCOMS_TAIL_TOL with equal counts, as phase 9's
+    # fixed-count step: the anisotropic and bc-file steps run to
+    # piterations, and there a 1e-15 change of T moves the host CPU's own
+    # step by about 1e-7
+    work = tempfile.mkdtemp(prefix="citcoms_tail_")
+    nsf = cookbook2.nodex * cookbook2.nodey
+    np.savetxt(os.path.join(work, "ages.txt"),
+               np.where(np.arange(nsf) % cookbook2.nodex < 16, 300.0,
+                        3000.0))
+    for age, mag in ((1, 0.02), (2, 0.04)):
+        vb = np.zeros((nsf, 2))
+        vb[:, 0] = mag
+        np.savetxt(os.path.join(work, f"vel{age}"), vb)
+        np.savetxt(os.path.join(work, f"temp{age}"), np.full(nsf, 0.01 * age))
+    phase = dict(Ra_410=2e4, clapeyron410=0.1, transT410=0.5, z_410=0.2,
+                 width410=0.05)
+    branches = {
+        "phase_change": phase,
+        "tala_latent": dict(phase, disptn_number=0.5, surfaceT=0.1),
+        "anisotropic": dict(ANIVISC=True, ani_vis2_factor=0.5),
+        "lith_age": dict(lith_age=True, lith_age_depth=0.12,
+                         lith_age_file=os.path.join(work, "ages.txt")),
+        "bc_files": dict(start_age=1.5, vbcs_file=True,
+                         vel_bound_file=os.path.join(work, "vel"),
+                         tbcs_file=True,
+                         temp_bound_file=os.path.join(work, "temp"))}
+    fixed_cap = dict(accuracy=0.0, piterations=3, vlowstep=60)
+
+    def branch_step(model, s):
+        if bc_files.uses_bc_files(model.cfg):
+            return model.step_with_bcs(s, bc_files.step_bcs(model,
+                                                            float(s.time)))
+        return model.step(s)
+
+    br = {}
+    for name, kw in branches.items():
+        cfg = dataclasses.replace(cookbook2, **kw)
+        fixed = dataclasses.replace(cfg, **fixed_cap)
+        models = [CitcomModel(cfg, dtype=f64, device=dev)] + [
+            CitcomModel(fixed, dtype=f64, device=d) for d in (dev, "cpu")]
+        start = s0
+        if name == "lith_age":
+            _check(torch.equal(models[0].init_state().T.cpu(),
+                               models[2].init_state().T),
+                   "lith_age initial T differs")
+            start = dataclasses.replace(s0, T=models[0].init_state().T)
+        _, dn = branch_step(models[0], start)
+        rg, dg = branch_step(models[1], start)
+        rh, dh = branch_step(models[2], _to_host(models[2], start))
+        _check((dg.uzawa_iterations, dg.inner_iterations)
+               == (dh.uzawa_iterations, dh.inner_iterations) == (3, 240),
+               f"{name} at a fixed count: {dg} {dh}")
+        br[name] = (max(_state_err(rg, rh).values()),
+                    f"{dn.uzawa_iterations}/{dn.inner_iterations}")
+    _check(max(e for e, _ in br.values()) <= tol,
+           f"branch steps at a fixed count, card against host CPU: {br}")
+    _say("14-branches-f64", tol=tol, fixed_uzawa_cg="3/240", **{
+        k: f"fixed_rel_err:{e:.3g},natural_uzawa_cg:{n}"
+        for k, (e, n) in br.items()})
+
+    # ---- (d) the CLI: output, checkpoints, restart, graceful stop -------
+    def cli_cfg(tag):
+        """Cookbook2's parameters as a config file (the dump parses back
+        to the same configuration) with a datadir of its own."""
+        path = os.path.join(work, f"{tag}.cfg")
+        with open(path, "w") as f:
+            f.write(cookbook2.dump() + f"datadir={os.path.join(work, tag)}\n"
+                    "storage_spacing=2 checkpoint_frequency=2\n")
+        return path
+
+    cfg_run = cli_cfg("run")
+    on = dev.type
+    s4, h4 = citcoms_regional.main([cfg_run, "--device", on, "--steps", "4"])
+    files = sorted(os.listdir(os.path.join(work, "run")))
+    stem = cookbook2.datafile
+    want = {f"{stem}.chkpt.0.2", f"{stem}.chkpt.0.4", f"{stem}.coord.0.0"}
+    want |= {f"{stem}.{k}.0.{i}" for k in ("velo", "visc") for i in (0, 2, 4)}
+    _check(s4.step == 4 and len(h4) == 4 and set(files) == want,
+           f"CLI files {files}")
+    r4, _ = citcoms_regional.main([
+        cfg_run, "--device", on, "--steps", "2", "--restart",
+        os.path.join(work, "run", f"{stem}.chkpt.0.2")])
+    same = r4.step == s4.step == 4 and all(
+        torch.equal(getattr(r4, k), getattr(s4, k))
+        for k in ("T", "Tdot", "V", "P", "time", "dt"))
+    _check(same, "restart from step 2 did not reproduce step 4 bitwise")
+    cfg_stop = cli_cfg("stop")
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "g4s_tpu_torch.drivers.citcoms_regional",
+         cfg_stop, "--device", on, "--steps", "200"], cwd=here, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if line.startswith("step 1:"):
+                proc.send_signal(signal.SIGTERM)
+                break
+        rest, _ = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lines += rest.splitlines()
+    stops = [ln for ln in lines if ln.startswith("# graceful stop at step")]
+    _check(proc.returncode == 0 and len(stops) == 1,
+           f"SIGTERM: rc {proc.returncode}, output {lines[-6:]}")
+    stop_step = int(stops[0].split()[5].rstrip(";"))
+    ck = os.path.join(work, "stop", f"{stem}.chkpt.0.{stop_step}")
+    _check(os.path.exists(ck), f"SIGTERM wrote no checkpoint {ck}")
+    _say("14-cli", device=on, steps=4, files=",".join(files),
+         restart_step4_bitwise=True, sigterm_stop_step=stop_step,
+         sigterm_checkpoint=os.path.basename(ck))
+    shutil.rmtree(work)
+    launches = segment.LAUNCHES
+    _check(launches > 0, "phase 14 launched no segment-sum kernel")
+    _say("14-citcoms-tail", segment_sum_launches=launches,
+         seconds=f"{time.perf_counter() - t_phase:.1f}")
+    return {"launches": launches}
+
+
 def _tile_overlap(fn, tiles: int, tries: int = 8) -> float:
     """How far the chain's tile kernels overlap in one fn() call, as
     torch.profiler records them: the sum of the `tiles` kernels' durations
@@ -1927,6 +2268,8 @@ def main() -> int:
          nvcc=repr(nvcc_ver), card=repr(smi),
          count=torch.cuda.device_count())
 
+    # each phase's start on the host clock, for the phase-seconds line
+    laps = [(1, time.perf_counter())]
     t0 = time.perf_counter()
     lib_path, log = _build.build()
     _build.load()
@@ -1937,6 +2280,7 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print("    ptxas:", line.strip())
 
+    laps.append((2, time.perf_counter()))
     # ---- 2: each kernel against its plain version, small cases ----------
     rng = np.random.default_rng(0)
     err = {"permute_gather": 0.0, "wsell_spmv": 0.0, "bwell_spmv": 0.0}
@@ -2003,6 +2347,7 @@ def main() -> int:
         _say("2-wsell", case=name, shape=a.shape, W=packed.width,
              k=packed.k, rel_err=f"{rel:.3g}")
 
+    laps.append((3, time.perf_counter()))
     # ---- 3: the main path, shuffled 3D 7-point stencil -----------------
     A = _stencil(101, seed=0)
     n = A.shape[0]
@@ -2112,6 +2457,7 @@ def main() -> int:
     ws3, x_pad3 = g.wsell, x_pad
     del g, A
 
+    laps.append((4, time.perf_counter()))
     # ---- 4: RCM-DIA: the shuffled 16-diagonal band ----------------------
     nb = 1 << 20
     band = _band(nb)
@@ -2132,6 +2478,7 @@ def main() -> int:
     permute_path("4-permute-path", "dia.perm", g4.perm, nb, nb)
     del g4, shuf
 
+    laps.append((5, time.perf_counter()))
     # ---- 5: the streaming schedule: uniform random 2^17 x 8 -------------
     nr = 1 << 17
     rr = np.random.default_rng(1)
@@ -2173,6 +2520,7 @@ def main() -> int:
                  s5.rowplan.sigma[: s5.n_rows], s5.n_rows, s5.n_rows)
     del g5
 
+    laps.append((6, time.perf_counter()))
     # ---- 6: the BWELL path: spmv_bwell ---------------------------------
     def bwell_pad(p, xv):
         xp = torch.zeros(p.n_cols + bwell_spmv.X_PAD, device=dev)
@@ -2253,6 +2601,7 @@ def main() -> int:
          host_pack_s=f"{pack_s:.2f}")
     del pb, pr, band, clustered
 
+    laps.append((7, time.perf_counter()))
     # ---- 7: the SpGEMM path: mxm ----------------------------------------
     built = []
     esc_plan = spgemm_esc.esc_plan
@@ -2365,10 +2714,12 @@ def main() -> int:
              all_pass=True,
              max_err=f"{max(e for _, e in res.values()):.3g}")
 
+    laps.append((8, time.perf_counter()))
     # ---- 8: the mv suite: dense BLAS2 at dim 4096 -----------------------
     mv = mv_bench.run(4096, verbose=False, device=dev)
     _say("8-mv", dim=4096, **{k: f"{v:.4f}" for k, v in mv.items()})
 
+    laps.append((9, time.perf_counter()))
     # ---- 9: CitcomS regional Cookbook2 ---------------------------------
     t0 = time.perf_counter()
     m64 = CitcomModel(cookbook2, dtype=torch.float64, device=dev)
@@ -2456,9 +2807,16 @@ def main() -> int:
          segment_sum_launches_per_step=len(seg_acts),
          segment_sum_device_ms_per_step=f"{sum(seg_acts) / 1e3:.4f}",
          segment_sum_share_of_busy=f"{sum(seg_acts) / 1e3 / busy_ms:.4f}")
+    # phase 9's CG numbers, printed beside multigrid's in phase 14
+    from g4s_tpu_torch.models.citcoms.observables import rms_velocity
+    cg9 = {"vrms0": float(rms_velocity(m64, r64["s0"].V)),
+           "s_per_step": f"{r32['wall_s']:.4f}", "inner": r32["inner"],
+           "host_syncs": r32["host_syncs"], "kernels": len(step_acts),
+           "busy_ms": f"{busy_ms:.2f}",
+           "idle": f"{max(0.0, 1 - busy_ms / 1e3 / r32['wall_s']):.3f}"}
     for name, m in (("f32", m32), ("f64", m64)):
         s_ = r32["s"] if name == "f32" else r64["s"]
-        ops = m._build_ops(s_.T, s_.V)
+        ops = m._build_ops(s_.T, V=s_.V)
         st = nodal.build_stencil(ops.elt_k, m.stencil_plan)
         u = torch.from_numpy(np.random.default_rng(3).standard_normal(
             (m.mesh.nno, 3))).to(dev, m.dtype)
@@ -2496,7 +2854,7 @@ def main() -> int:
     # line keeps the f64 stencil build
     rng9 = np.random.default_rng(9)
     for name, m, s_ in (("f64", m64, r64["s"]), ("f32", m32, r32["s"])):
-        ops = m._build_ops(s_.T, s_.V)
+        ops = m._build_ops(s_.T, V=s_.V)
         p_el = torch.from_numpy(rng9.standard_normal(m.mesh.nel)).to(
             dev, m.dtype)
         cases = {
@@ -2559,20 +2917,34 @@ def main() -> int:
                  share_of_bound=f"{r['bound'][0] / r['ms']:.3f}")
     del m32, m64, ops, flat, cases
 
+    laps.append((10, time.perf_counter()))
     # ---- 10: DeePMD se_e2_a water at the flagship width -----------------
     _deepmd_water(dev)
 
+    laps.append((11, time.perf_counter()))
     # ---- 11: the per-matrix static kernels at the stencil of phase 3 -----
     _static_kernels(dev, ws3, x_pad3, A_p, err, ms, plain_ms, library_ms,
                     bound, launches, ms_of, flush_l2)
     del ws3, x_pad3, A_p
 
+    laps.append((12, time.perf_counter()))
     # ---- 12: DeePMD training at the flagship width ----------------------
     _deepmd_train(dev)
 
+    laps.append((13, time.perf_counter()))
     # ---- 13: Cantera's NonIdealShockTube at the dodecane size ------------
     _cantera_shock_tube(dev)
 
+    laps.append((14, time.perf_counter()))
+    # ---- 14: the rest of regional CitcomS at Cookbook2's size ------------
+    tail = _citcoms_tail(dev, cookbook2, cg9)
+    # the segment sum's launches: phase 9's Cookbook2 runs and phase 14's
+    launches["sorted_segment_sum"] += tail["launches"]
+
+    laps.append((None, time.perf_counter()))
+    _say("phase-seconds", **{f"p{k}": f"{t1 - t0:.1f}" for (k, t0), (_, t1)
+                             in zip(laps, laps[1:])},
+         total=f"{laps[-1][1] - laps[0][1]:.1f}")
     sources = {"permute_gather": "g4s_tpu_torch/csrc/permute.cu",
                "wsell_spmv": "g4s_tpu_torch/csrc/wsell_spmv.cu",
                "bwell_spmv": "g4s_tpu_torch/csrc/bwell_spmv.cu",

@@ -1,7 +1,11 @@
-"""Checkpoints (counterpart of the DeePMD half of g4s_tpu/ckpt.py).
+"""Checkpoints (counterpart of g4s_tpu/ckpt.py).
 
-Reference capability: DeePMD TF Saver checkpoints and re-init from a
-checkpoint (deepmd/deepmd/train/trainer.py:1094-1123, :1326-1416).
+Reference capabilities: CitcomS full solver-state checkpoints, written
+every checkpoint_frequency steps and restored on restart
+(citcoms/lib/Checkpoints.c:53-139 output_checkpoint / :89
+read_checkpoint; wired at bin/Citcom.c:140-156,247-250), and DeePMD TF
+Saver checkpoints and re-init from a checkpoint
+(deepmd/deepmd/train/trainer.py:1094-1123, :1326-1416).
 
 A checkpoint is the reference's own npz file: `__header__`, a JSON string
 {"sentinel": "g4s-tpu-ckpt-v1", "n_leaves", "meta"}, then `leaf_{i}`, the
@@ -14,8 +18,9 @@ A DeePMD checkpoint holds {"params": ...} and, when saved with one, the
 optimizer state as "opt_state", laid out as optax flattens
 optax.adam(learning_rate=schedule)'s state (models/deepmd/train.py Adam).
 
-CitcomS checkpoints (save_citcoms / load_citcoms) are not ported yet
-(ROADMAP.md queue 1, item 4, "The CitcomS tail").
+A CitcomS checkpoint holds the State's leaves in the reference's field
+order (T, Tdot, V, P, time, dt, step; step an int32 scalar) with meta
+{"kind": "citcoms", "step", "time", "config": cfg.dump()}.
 """
 
 from __future__ import annotations
@@ -104,6 +109,31 @@ def load_pytree(path, like) -> Tuple[Any, Dict[str, Any]]:
     tensors = [torch.from_numpy(np.array(a)).to(t.device)
                for a, t in zip(leaves, template)]
     return tree_unflatten(like, iter(tensors)), header["meta"]
+
+
+# ---------------- CitcomS ----------------
+
+def _citcoms_leaves(state) -> list:
+    return [state.T, state.Tdot, state.V, state.P, state.time, state.dt,
+            torch.tensor(int(state.step), dtype=torch.int32)]
+
+
+def save_citcoms(path, state, cfg) -> None:
+    """output_checkpoint equivalent: full momentum+energy solver state."""
+    save_pytree(path, _citcoms_leaves(state), meta={
+        "kind": "citcoms", "step": int(state.step),
+        "time": float(state.time), "config": cfg.dump()})
+
+
+def load_citcoms(path, model):
+    """read_checkpoint equivalent: the State on the model's device, its
+    float leaves in the model's dtype. Returns (state, meta)."""
+    from g4s_tpu_torch.models.citcoms.driver import State
+    leaves, meta = load_pytree(path, _citcoms_leaves(model.init_state()))
+    if meta.get("kind") != "citcoms":
+        raise ValueError(f"{path} is not a citcoms checkpoint")
+    fields = [x.to(model.dtype) for x in leaves[:6]]
+    return State(*fields, int(leaves[6])), meta
 
 
 # ---------------- DeePMD ----------------

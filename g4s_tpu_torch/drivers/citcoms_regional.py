@@ -1,21 +1,28 @@
 """CLI entry point — the `CitcomSRegional <configfile>` equivalent
 (citcoms/bin/Citcom.c:50-299 main; counterpart of
 g4s_tpu/drivers/citcoms_regional.py): parse the flat config, run the
-initial Stokes solve and the timestep loop, print each step's diagnostics
-and the wall time per step.
+timestep loop with output every storage_spacing steps and checkpoints every
+checkpoint_frequency steps (both into the config's datadir), print each
+step's diagnostics and the wall time per step. SIGINT/SIGTERM request a
+graceful stop: finish the current step, write a checkpoint, exit
+(lib/Interuption.c set_signal semantics).
 
 Usage: python -m g4s_tpu_torch.drivers.citcoms_regional <configfile>
-           [--steps N] [--f32] [--device cuda|cpu] [--restart ckpt]
-
-Output files, checkpoints (and so `--restart`) and the graceful stop on
-SIGINT/SIGTERM, which writes a checkpoint, wait for the port's output and
-checkpoints (ROADMAP.md queue 1, item 4, "The CitcomS tail").
+           [--restart ckpt] [--f32] [--steps N] [--device cuda|cpu]
 """
 
 from __future__ import annotations
 
 import argparse
+import signal
 import time
+
+_STOP = {"flag": False}
+
+
+def _graceful(sig, frame):
+    print(f"# caught signal {sig}: stopping after this step", flush=True)
+    _STOP["flag"] = True
 
 
 def main(argv=None):
@@ -33,18 +40,26 @@ def main(argv=None):
     cfg = load_config(args.config)
     print(f"# G4S-TPU (torch) CitcomSRegional: "
           f"{cfg.nodex}x{cfg.nodey}x{cfg.nodez} Ra={cfg.rayleigh} "
-          f"steps={cfg.maxstep} device={args.device}")
+          f"steps={cfg.maxstep} device={args.device}", flush=True)
     model = CitcomModel(cfg, dtype=torch.float32 if args.f32
                         else torch.float64, device=args.device)
-    t0 = time.perf_counter()
-    s, hist = model.run(args.steps, verbose=True,
-                        restart_from=args.restart)
-    if model.device.type == "cuda":
-        torch.cuda.synchronize()
-    total = time.perf_counter() - t0
+    _STOP["flag"] = False
+    handlers = {sig: signal.signal(sig, _graceful)
+                for sig in (signal.SIGINT, signal.SIGTERM)}
+    try:
+        t0 = time.perf_counter()
+        s, hist = model.run(args.steps, verbose=True, write_output=True,
+                            checkpoint=True, restart_from=args.restart,
+                            stop_flag=lambda: _STOP["flag"])
+        if model.device.type == "cuda":
+            torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for sig, h in handlers.items():
+            signal.signal(sig, h)
     n = len(hist)
     print(f"# total time {total:.3f} s; {total / max(n, 1):.4f} s/step "
-          f"(incl. the initial solve)")
+          f"(incl. the initial solve)", flush=True)
     return s, hist
 
 

@@ -1,6 +1,5 @@
-"""Nodal (stencil) form of the velocity stiffness operator (counterpart of
-the stencil half of g4s_tpu/models/citcoms/nodal.py; the colored
-Gauss-Seidel smoother comes with multigrid).
+"""Nodal (stencil) form of the velocity stiffness operator and the colored
+Gauss-Seidel smoother (counterpart of g4s_tpu/models/citcoms/nodal.py).
 
 The reference keeps two interchangeable forms of K u (assemble_del2_u
 dispatch, Element_calculations.c:428-443): element-by-element (the graph
@@ -108,3 +107,85 @@ def nodal_matvec(st: Stencil, u, vbc_mask, *, strip: bool = True):
     if strip:
         au = torch.where(vbc_mask, 0.0, au)
     return au
+
+
+# ---------------------------------------------------------------------------
+# Colored Gauss-Seidel smoother (gauss_seidel, General_matrix_functions.c:606;
+# the CUDA port's colored split, multigrid_kernel.cu:236-478). On the
+# 27-point stencil the 2x2x2 node coloring gives 8 colors whose members
+# never neighbor each other, so each color updates simultaneously and the
+# color sequence is an exact Gauss-Seidel sweep. Each color's residual is
+# evaluated only on its own strided subgrid: one gather of its nodes' 27
+# neighbours and one batched product, so a sweep costs about one matvec.
+# ---------------------------------------------------------------------------
+
+_COLORS = [(cy, cx, cz) for cy in (0, 1) for cx in (0, 1) for cz in (0, 1)]
+
+
+class GSPlan(NamedTuple):
+    """Per-color gather plans for the 8-color sweep, built once: each
+    color's nodes in (iy, ix, iz) order and their 27 neighbours (the
+    stencil plan's, so a slot outside the grid names the node itself,
+    whose block there is 0), int32 on the stencil plan's device."""
+    nodes: Tuple[torch.Tensor, ...]    # per color: (m,) node ids
+    nbr: Tuple[torch.Tensor, ...]      # per color: (m, 27) neighbour ids
+    sizes: Tuple[Tuple[int, int, int], ...]
+    grid: Tuple[int, int, int]
+
+    @staticmethod
+    def build(plan: StencilPlan) -> "GSPlan":
+        noy, nox, noz = plan.grid
+        ids = np.arange(noy * nox * noz).reshape(noy, nox, noz)
+        dev = plan.nbr.device
+        nodes, nbrs, sizes = [], [], []
+        for cy, cx, cz in _COLORS:
+            sub = ids[cy::2, cx::2, cz::2]
+            flat = torch.from_numpy(sub.ravel().astype(np.int32)).to(dev)
+            nodes.append(flat)
+            nbrs.append(plan.nbr[flat].to(torch.int32))
+            sizes.append(sub.shape)
+        return GSPlan(tuple(nodes), tuple(nbrs), tuple(sizes), plan.grid)
+
+
+def stencil_block_dinv(st: Stencil, vbc_mask):
+    """Per-node inverse of the 3x3 diagonal block (slot 13 = zero offset),
+    (nno, 3, 3). BC-constrained dofs get identity rows/cols so the update
+    there is the plain (masked-to-zero) residual. vbc_mask: (nno, 3)."""
+    nno = st.W.shape[0]
+    D = st.W.reshape(nno, 3, 27, 3)[:, :, 13, :]
+    eye = torch.eye(3, dtype=D.dtype, device=D.device)
+    free = ~vbc_mask
+    D = torch.where(free[..., :, None] & free[..., None, :], D, 0.0)
+    D = D + torch.where(vbc_mask[..., :, None] & (eye > 0), 1.0, 0.0) * eye
+    det = torch.linalg.det(D)
+    D = torch.where((det.abs() > 1e-30)[..., None, None], D, eye)
+    # inv_ex: inv would read its error flag back to the host
+    return torch.linalg.inv_ex(D)[0]
+
+
+def gauss_seidel_colored(st: Stencil, Dinv, F, u, vbc_mask, n_sweeps: int,
+                         plan: GSPlan):
+    """n_sweeps of 8-color block Gauss-Seidel on K u = F (u, F (nno, 3)).
+
+    Colors update simultaneously (2x2x2 coloring has no intra-color
+    neighbors on the 27-point stencil); the color sequence is an exact
+    Gauss-Seidel sweep. The sweep count is fixed: nothing is read back to
+    the host.
+    """
+    noy, nox, noz = plan.grid
+    u = u.clone(memory_format=torch.contiguous_format)
+    ug = u.view(noy, nox, noz, 3)
+    per_color = []
+    for ci in range(len(_COLORS)):
+        nodes = plan.nodes[ci]
+        per_color.append((st.W[nodes], Dinv[nodes], F[nodes], vbc_mask[nodes],
+                          plan.nbr[ci]))
+    for _ in range(n_sweeps):
+        for ci, (cy, cx, cz) in enumerate(_COLORS):
+            Wc, Dc, Fc, mc, nbr = per_color[ci]
+            au = torch.bmm(Wc, u[nbr].reshape(-1, 81, 1)).reshape(-1, 3)
+            r = torch.where(mc, 0.0, Fc - au)
+            du = torch.bmm(Dc, r[:, :, None]).reshape(-1, 3)
+            du = torch.where(mc, 0.0, du)
+            ug[cy::2, cx::2, cz::2].add_(du.reshape(*plan.sizes[ci], 3))
+    return u

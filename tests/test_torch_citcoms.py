@@ -464,19 +464,44 @@ def test_bicgstab_stokes_matches():
     (dict(vbcs_file=True, vel_bound_file="vb"), "boundary-condition"),
 ])
 def test_unported_branches_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        CitcomModel(small_cfg(**dict(LID, **kw)), device="cpu")
+    """The six configuration branches the port once refused now build a
+    model that takes them (tests/test_torch_citcoms_tail.py holds each to
+    the reference); only the df64 tier, which is not ported, raises."""
+    from g4s_tpu_torch.models.citcoms import bc_files
+    m = CitcomModel(small_cfg(**dict(LID, **kw)), device="cpu")
+    taken = {"multigrid": m.mg is not None,
+             "lith_age": not torch.equal(m.init_state().T,
+                                         models()[1].init_state().T),
+             "phase changes": not torch.equal(
+                 m.buoyancy(m.init_state().T),
+                 models()[1].buoyancy(m.init_state().T)),
+             "TALA": m._build_ops(m.init_state().T).elt_c is not None,
+             "anisotropic": not torch.equal(
+                 m._build_ops(m.init_state().T).elt_k,
+                 models()[1]._build_ops(m.init_state().T).elt_k),
+             "boundary-condition": bc_files.uses_bc_files(m.cfg)}
+    assert taken[match]
+    with pytest.raises(NotImplementedError, match="df64"):
+        CitcomModel(small_cfg(**dict(LID, **kw)), device="cpu",
+                    df64_inner=True)
 
 
-def test_unported_run_options_raise():
-    _, pm = models()
-    for kw, match in ((dict(write_output=True), "output"),
-                      (dict(checkpoint=True), "checkpoints"),
-                      (dict(restart_from="x"), "checkpoints")):
-        with pytest.raises(NotImplementedError, match=match):
-            pm.run(1, **kw)
-    with pytest.raises(NotImplementedError, match="tracers"):
-        pm.step_tracers(pm.init_state(), None, None)
+def test_unported_run_options_raise(tmp_path):
+    """run()'s output, checkpoint and restart options and the
+    thermochemical step, once refused, now run: output files and a
+    checkpoint are written, and a restart from it resumes its state."""
+    cfg = small_cfg(**dict(LID, datadir=str(tmp_path), storage_spacing=1,
+                           checkpoint_frequency=1))
+    pm = CitcomModel(cfg, device="cpu")
+    s, hist = pm.run(1, write_output=True, checkpoint=True)
+    assert s.step == 1 and len(hist) == 1
+    assert (tmp_path / "citcom.velo.0.1").exists()
+    r, rhist = pm.run(0, restart_from=str(tmp_path / "citcom.chkpt.0.1"))
+    assert r.step == 1 and rhist == [] and torch.equal(r.T, s.T)
+    from g4s_tpu_torch.models.citcoms import tracers
+    pos, fl = tracers.seed_tracers(pm.mesh, 2)
+    s2, d, pos2 = pm.step_tracers(s, t64(pos), torch.from_numpy(fl))
+    assert s2.step == 2 and pos2.shape == pos.shape
 
 
 def test_sum_plans_are_int32():
@@ -512,7 +537,8 @@ def test_cli_runs_on_the_cpu(tmp_path, capsys):
     path = tmp_path / "small.cfg"
     path.write_text("rayleigh=100000 nodex=5 nodey=5 nodez=4\n"
                     "theta_max=1.5708 theta_min=0.7854 fi_max=0.7854\n"
-                    "topvbc=1 topvbxval=100 num_mat=4\n")
+                    "topvbc=1 topvbxval=100 num_mat=4\n"
+                    f"datadir={tmp_path}\n")
     s, hist = citcoms_regional.main([str(path), "--device", "cpu",
                                      "--steps", "2"])
     out = capsys.readouterr().out
@@ -520,6 +546,9 @@ def test_cli_runs_on_the_cpu(tmp_path, capsys):
     _, pm = models()
     assert [(d.uzawa_iterations, d.inner_iterations) for d in hist] == [
         (d.uzawa_iterations, d.inner_iterations) for d in pm.run(2)[1]]
-    with pytest.raises(NotImplementedError, match="checkpoints"):
+    # the CLI writes output and checkpoints as the reference's does; a
+    # restart from a file that is not there fails
+    assert (tmp_path / "citcom.velo.0.0").exists()
+    with pytest.raises(FileNotFoundError):
         citcoms_regional.main([str(path), "--device", "cpu",
-                               "--restart", "ck"])
+                               "--restart", str(tmp_path / "ck")])

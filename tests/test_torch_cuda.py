@@ -487,3 +487,52 @@ def test_cantera_rhs_and_jacobian_on_cuda_match_cpu(cuda, tmp_path):
                                                               y.to(cuda)),
                        torch.func.jacfwd(host.rhs, argnums=1)(0.0, y)) \
                 <= 1e-11
+
+
+def _small_citcoms(device, **kw):
+    from g4s_tpu_torch.models.citcoms import CitcomModel
+    from g4s_tpu_torch.models.citcoms.config import CitcomConfig
+    cfg = CitcomConfig(nodex=9, nodey=9, nodez=5, theta_min=0.7854,
+                       theta_max=1.5708, fi_min=0.0, fi_max=0.7854,
+                       radius_inner=0.55, radius_outer=1.0, num_mat=4,
+                       rayleigh=1e5, topvbc=1, topvbxval=100.0, **kw)
+    return CitcomModel(cfg, device=device)
+
+
+def test_gauss_seidel_sweep_on_cuda_matches_cpu(cuda):
+    """Three sweeps of the 8-color smoother, f64: the card within 1e-12 of
+    the host CPU."""
+    from g4s_tpu_torch.models.citcoms import nodal
+    out = []
+    rng = np.random.default_rng(11)
+    F = rng.standard_normal((405, 3))
+    u = rng.standard_normal((405, 3))
+    for dev in ("cpu", cuda):
+        m = _small_citcoms(dev)
+        ops = m._build_ops(m.init_state().T)
+        st = nodal.build_stencil(ops.elt_k, m.stencil_plan)
+        D = nodal.stencil_block_dinv(st, m.vbc_mask)
+        plan = nodal.GSPlan.build(m.stencil_plan)
+        out.append(nodal.gauss_seidel_colored(
+            st, D, torch.from_numpy(F).to(dev), torch.from_numpy(u).to(dev),
+            m.vbc_mask, 3, plan).cpu())
+    assert float((out[1] - out[0]).abs().max()) <= \
+        1e-12 * float(out[0].abs().max())
+
+
+def test_project_down_on_cuda_is_repeatable(cuda):
+    """project_down sums through the segment-sum kernel: two card calls
+    bitwise equal, and equal to the host CPU's in-order sum."""
+    from g4s_tpu_torch.models.citcoms import multigrid
+    m = _small_citcoms(cuda, solver_type="multigrid", levels=2)
+    interp = m.mg.levels[1].interp
+    r = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (405, 3))).to(cuda)
+    before = segment.LAUNCHES
+    a = multigrid.project_down(interp, r)
+    b = multigrid.project_down(interp, r)
+    assert segment.LAUNCHES == before + 2
+    assert torch.equal(a, b)
+    cpu = multigrid.Interp(*(x.cpu() if isinstance(x, torch.Tensor) else x
+                             for x in interp))
+    assert torch.equal(a.cpu(), multigrid.project_down(cpu, r.cpu()))

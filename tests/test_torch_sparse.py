@@ -66,7 +66,19 @@ def test_package_imports_no_jax():
             "g4s_tpu_torch.models.deepmd.fit_tensor, "
             "g4s_tpu_torch.models.deepmd.spin, "
             "g4s_tpu_torch.models.cantera, g4s_tpu_torch.ops.odeint, "
-            "g4s_tpu_torch.drivers.shock_tube; "
+            "g4s_tpu_torch.drivers.shock_tube, "
+            "g4s_tpu_torch.models.citcoms, "
+            "g4s_tpu_torch.models.citcoms.multigrid, "
+            "g4s_tpu_torch.models.citcoms.tracers, "
+            "g4s_tpu_torch.models.citcoms.phase_change, "
+            "g4s_tpu_torch.models.citcoms.anisotropic, "
+            "g4s_tpu_torch.models.citcoms.lith_age, "
+            "g4s_tpu_torch.models.citcoms.bc_files, "
+            "g4s_tpu_torch.models.citcoms.sphere_harmonics, "
+            "g4s_tpu_torch.models.citcoms.observables, "
+            "g4s_tpu_torch.models.citcoms.output, "
+            "g4s_tpu_torch.models.citcoms.vtk, "
+            "g4s_tpu_torch.drivers.citcoms_regional; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'g4s_tpu.')) or m == 'g4s_tpu'); "
             "print(bad); sys.exit(1 if bad else 0)")
