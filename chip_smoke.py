@@ -142,15 +142,18 @@ Run from the root of a checkout: `python3 chip_smoke.py`. It
      against the host CPU, positions within 1e-10 and element compositions
      equal, then f32 ms/step; one f64 step each of phase changes, TALA
      with latent heat, anisotropic viscosity, lith_age from an age file
-     and velocity + temperature bc files (written by the script): on the
-     card as the CLI runs it (its counts printed), and with every solver
-     loop at a fixed cap on the card against the host CPU within 1e-10,
-     as phase 9's fixed-count step; the CLI on the card
+     and velocity + temperature bc files (written by the script), with
+     every solver loop at a fixed cap, on the card against the host CPU
+     within 1e-10, as phase 9's fixed-count step; the CLI on the card
      (storage_spacing 2, checkpoint_frequency 2, 4 steps in a temporary
      datadir: its files listed), `--restart` from the step-2 checkpoint
      reaching step 4 bitwise, and SIGTERM to a running CLI writing a
-     checkpoint at the step it stops. The segment-sum kernel's launches
-     over the phase join phase 9's in the kernels line.
+     checkpoint at the step it stops. After the phase's launches are
+     read, the segment-sum kernel at the shapes the phase gives it that
+     phase 9 does not (multigrid's restriction at both levels, the
+     tracers' element-to-node map; f64 and f32), held and timed as in
+     phase 9. The phase's launches are a kernels-line entry of their own,
+     timed at the finest restriction in f64.
 
 Device times are medians per call between back-to-back calls queued
 behind a device sleep (g4s_tpu_torch.obs.timings.device_ms); "cold" times
@@ -1737,8 +1740,9 @@ def _profiled_step(step, s):
     """Device kernels, busy ms and segment sums of one more step(s) under
     torch.profiler."""
     from g4s_tpu_torch.obs.timings import device_activities
+    t0 = time.perf_counter()
     acts = device_activities(lambda: step(s))
-    return {"kernels": len(acts),
+    return {"kernels": len(acts), "seconds": time.perf_counter() - t0,
             "busy_ms": sum(us for _, us in acts) / 1e3,
             "segment_sums": sum("sorted_segment_sum_kernel" in name
                                 for name, _ in acts)}
@@ -1756,13 +1760,66 @@ def _to_host(model_h, s):
                                           "dt")}, step=s.step))
 
 
-def _citcoms_tail(dev, cookbook2, cg9: dict) -> dict:
+def _segment_sum_case(phase, shape, dtype, flat, ids, order, n_seg, ms_of):
+    """The segment-sum kernel at one shape a CitcomS path gives it: bitwise
+    repeatable and equal to the host CPU's in-order sum, within 1e-12 (f64)
+    or REL_TOL (f32) of the largest sum from its plain version (gather +
+    index_add_, whose atomics on the card add in another order), and timed
+    beside its bytes bound, the plain version and one index_add_ of the
+    unsorted rows (its zero fill included), the same function."""
+    import torch
+    from g4s_tpu_torch.ops import segment
+    seg_sum = lambda: segment.sorted_segment_sum(flat, ids, n_seg,
+                                                 order=order)
+    seg_plain = lambda: segment._sorted_segment_sum_plain(flat, ids, n_seg,
+                                                          order=order)
+    ids_by_row = torch.empty_like(ids)
+    ids_by_row[order] = ids
+    seg_lib = lambda: torch.zeros(
+        (n_seg,) + tuple(flat.shape[1:]), dtype=flat.dtype,
+        device=flat.device).index_add_(0, ids_by_row, flat)
+    got = seg_sum()
+    _check(torch.equal(got, seg_sum()) and torch.equal(
+        got.cpu(), segment._sorted_segment_sum_plain(
+            flat.cpu(), ids.cpu(), n_seg, order=order.cpu())),
+        f"segment sum at the {shape} ({dtype}): not bitwise repeatable or "
+        "not the host CPU's sum")
+    want = seg_plain()
+    e = float((got - want).abs().max())
+    _check(e <= (1e-12 if dtype == "f64" else REL_TOL)
+           * float(want.abs().max()),
+           f"segment sum at the {shape} ({dtype}) vs plain: {e}")
+    cols = flat[0].numel()
+    run = torch.bincount(ids.long(), minlength=n_seg).max()
+    r = {"err": e, "ms": ms_of(seg_sum, reps=50),
+         "plain_ms": ms_of(seg_plain, reps=50),
+         "library_ms": ms_of(seg_lib, reps=50),
+         # rows, ids and order read as passed; the sums written; one add
+         # per element
+         "bound": _bound(flat.numel() * flat.element_size()
+                         + ids.numel() * ids.element_size()
+                         + order.numel() * order.element_size()
+                         + n_seg * cols * flat.element_size(),
+                         flat.numel())}
+    _say(phase, shape=shape, dtype=dtype, rows=order.numel(), cols=cols,
+         segments=n_seg, longest_run=int(run),
+         index=str(ids.dtype).replace("torch.", ""),
+         bitwise_repeatable=True, equals_host_cpu=True,
+         max_abs_err_vs_index_add=f"{e:.3g}", kernel_ms=f"{r['ms']:.4f}",
+         plain_ms=f"{r['plain_ms']:.4f}",
+         index_add_ms=f"{r['library_ms']:.4f}",
+         bound_ms=f"{r['bound'][0]:.4f}",
+         share_of_bound=f"{r['bound'][0] / r['ms']:.3f}")
+    return r
+
+
+def _citcoms_tail(dev, cookbook2, cg9: dict, ms_of) -> dict:
     """Phase 14: the rest of regional CitcomS at Cookbook2's 33x33x9 nodes
     (multigrid, thermochemical tracers, phase changes, TALA, anisotropy,
     lith_age, bc files, the CLI's output, checkpoints, restart and
     graceful stop). `cg9` carries phase 9's CG numbers, printed beside
     multigrid's. Returns the segment-sum kernel's launches over the phase's
-    card runs."""
+    card runs and its reading at the finest restriction in f64."""
     import shutil
     import signal
     import tempfile
@@ -1777,6 +1834,12 @@ def _citcoms_tail(dev, cookbook2, cg9: dict) -> dict:
     f64 = torch.float64
     tol = CITCOMS_TAIL_TOL
     segment.LAUNCHES = 0
+    lap = [t_phase]
+
+    def since() -> str:
+        """Host seconds since the last call (each part's own time)."""
+        t, lap[0] = lap[0], time.perf_counter()
+        return f"{lap[0] - t:.1f}"
 
     # ---- (a) Solver=multigrid, levels 3: 33x33x9 -> 17x17x5 -> 9x9x3 ----
     mgcfg = dataclasses.replace(cookbook2, solver_type="multigrid", levels=3)
@@ -1824,7 +1887,8 @@ def _citcoms_tail(dev, cookbook2, cg9: dict) -> dict:
          uzawa_vcycles=",".join(f"{c[0]}/{c[1]}" for _, c in run_a),
          rel_err_vs_host_cpu=",".join(f"{e:.3g}" for e in mg_err), tol=tol,
          host_cpu_s=f"{host_s:.2f}", vrms0=f"{vrms_mg:.10g}",
-         cg_vrms0=f"{cg9['vrms0']:.10g}", vrms_rel=f"{vrms_rel:.3g}")
+         cg_vrms0=f"{cg9['vrms0']:.10g}", vrms_rel=f"{vrms_rel:.3g}",
+         seconds=since())
     del run_b, run_h, mg_h
     mg32 = CitcomModel(mgcfg, dtype=torch.float32, device=dev)
     s32, _ = mg32.initial_solve(mg32.init_state())
@@ -1843,7 +1907,24 @@ def _citcoms_tail(dev, cookbook2, cg9: dict) -> dict:
          cg_host_syncs_per_step=cg9["host_syncs"],
          cg_device_kernels_per_step=cg9["kernels"],
          cg_device_busy_ms_per_step=cg9["busy_ms"],
-         cg_device_idle_share=cg9["idle"])
+         cg_device_idle_share=cg9["idle"],
+         profile_s=f"{p32['seconds']:.1f}", seconds=since())
+    # the segment sums' inputs at the shapes this phase adds, held and
+    # timed after its launches are read: restriction at both levels
+    seg_inputs = {}
+    for name, m in (("f64", mg64), ("f32", mg32)):
+        for li in (1, 2):
+            ip = m.mg.levels[li].interp
+            fine = m.mg.levels[li - 1]
+            r = torch.from_numpy(np.random.default_rng(li).standard_normal(
+                (fine.mesh.nno, 3))).to(dev, m.dtype)
+            key = (f"project_down_{fine.cfg.nodex}x{fine.cfg.nodey}x"
+                   f"{fine.cfg.nodez}", name)
+            if (li, name) == (1, "f64"):
+                finest = key
+            seg_inputs[key] = (
+                (ip.w[:, :, None] * r[:, None, :]).reshape(-1, 3),
+                ip.seg_ids, ip.order, ip.nno_coarse)
     del mg64, mg32, s32, t32, run_a
 
     # ---- (b) the thermochemical step: 10 tracers per element ------------
@@ -1877,7 +1958,12 @@ def _citcoms_tail(dev, cookbook2, cg9: dict) -> dict:
     _say("14-thermochemical-f64", tracers=pos0.shape[0], seed=0,
          buoyancy_ratio=1.0, steps=3, compositions_equal=True,
          pos_rel_err=",".join(f"{e:.3g}" for e, _ in tr_err),
-         field_rel_err=",".join(f"{e:.3g}" for _, e in tr_err), tol=tol)
+         field_rel_err=",".join(f"{e:.3g}" for _, e in tr_err), tol=tol,
+         seconds=since())
+    for name, dt in (("f64", f64), ("f32", torch.float32)):
+        seg_inputs[("composition_to_nodes", name)] = (
+            cg_[1].to(dt)[:, None].expand(-1, 8).reshape(-1, 1),
+            tm.plan.seg_ids, tm.plan.order, tm.plan.nno)
     del tm_h, sh, ph
     tm32 = CitcomModel(tcfg, dtype=torch.float32, device=dev)
     box = {"pos": torch.from_numpy(pos0).to(dev, torch.float32)}
@@ -1896,19 +1982,19 @@ def _citcoms_tail(dev, cookbook2, cg9: dict) -> dict:
          host_syncs_per_step=t32["host_syncs"],
          device_kernels_per_step=pr["kernels"],
          device_busy_ms_per_step=f"{pr['busy_ms']:.2f}",
-         device_idle_share=f"{max(0.0, 1 - pr['busy_ms'] / 1e3 / t32['wall_s']):.3f}")
+         device_idle_share=f"{max(0.0, 1 - pr['busy_ms'] / 1e3 / t32['wall_s']):.3f}",
+         profile_s=f"{pr['seconds']:.1f}", seconds=since())
     del tm, tm32, s32, t32
 
     # ---- (c) one f64 step of each other branch, card against host CPU ---
     # The parameters of the reference's tests of each branch
     # (tests/test_citcoms.py:763-940,1040-1187,2053-2110) on this mesh, from
-    # the state after the initial solve. Each step runs on the card as the
-    # CLI runs it (its counts printed), and on the card and the host CPU
-    # with every solver loop at a fixed cap (accuracy 0: 3 Uzawa iterations
-    # of 60 CG), held to CITCOMS_TAIL_TOL with equal counts, as phase 9's
-    # fixed-count step: the anisotropic and bc-file steps run to
-    # piterations, and there a 1e-15 change of T moves the host CPU's own
-    # step by about 1e-7
+    # the state after the initial solve. Each step runs on the card and the
+    # host CPU with every solver loop at a fixed cap (accuracy 0: 3 Uzawa
+    # iterations of 60 CG), held to CITCOMS_TAIL_TOL with equal counts, as
+    # phase 9's fixed-count step: run to their tolerance, the anisotropic
+    # and bc-file steps go to piterations, and there a 1e-15 change of T
+    # moves the host CPU's own step by about 1e-7
     work = tempfile.mkdtemp(prefix="citcoms_tail_")
     nsf = cookbook2.nodex * cookbook2.nodey
     np.savetxt(os.path.join(work, "ages.txt"),
@@ -1943,27 +2029,23 @@ def _citcoms_tail(dev, cookbook2, cg9: dict) -> dict:
     for name, kw in branches.items():
         cfg = dataclasses.replace(cookbook2, **kw)
         fixed = dataclasses.replace(cfg, **fixed_cap)
-        models = [CitcomModel(cfg, dtype=f64, device=dev)] + [
-            CitcomModel(fixed, dtype=f64, device=d) for d in (dev, "cpu")]
+        mg_, mh = (CitcomModel(fixed, dtype=f64, device=d)
+                   for d in (dev, "cpu"))
         start = s0
         if name == "lith_age":
-            _check(torch.equal(models[0].init_state().T.cpu(),
-                               models[2].init_state().T),
+            _check(torch.equal(mg_.init_state().T.cpu(), mh.init_state().T),
                    "lith_age initial T differs")
-            start = dataclasses.replace(s0, T=models[0].init_state().T)
-        _, dn = branch_step(models[0], start)
-        rg, dg = branch_step(models[1], start)
-        rh, dh = branch_step(models[2], _to_host(models[2], start))
+            start = dataclasses.replace(s0, T=mg_.init_state().T)
+        rg, dg = branch_step(mg_, start)
+        rh, dh = branch_step(mh, _to_host(mh, start))
         _check((dg.uzawa_iterations, dg.inner_iterations)
                == (dh.uzawa_iterations, dh.inner_iterations) == (3, 240),
                f"{name} at a fixed count: {dg} {dh}")
-        br[name] = (max(_state_err(rg, rh).values()),
-                    f"{dn.uzawa_iterations}/{dn.inner_iterations}")
-    _check(max(e for e, _ in br.values()) <= tol,
+        br[name] = max(_state_err(rg, rh).values())
+    _check(max(br.values()) <= tol,
            f"branch steps at a fixed count, card against host CPU: {br}")
-    _say("14-branches-f64", tol=tol, fixed_uzawa_cg="3/240", **{
-        k: f"fixed_rel_err:{e:.3g},natural_uzawa_cg:{n}"
-        for k, (e, n) in br.items()})
+    _say("14-branches-f64", tol=tol, fixed_uzawa_cg="3/240",
+         **{k: f"{e:.3g}" for k, e in br.items()}, seconds=since())
 
     # ---- (d) the CLI: output, checkpoints, restart, graceful stop -------
     def cli_cfg(tag):
@@ -2018,13 +2100,18 @@ def _citcoms_tail(dev, cookbook2, cg9: dict) -> dict:
     _check(os.path.exists(ck), f"SIGTERM wrote no checkpoint {ck}")
     _say("14-cli", device=on, steps=4, files=",".join(files),
          restart_step4_bitwise=True, sigterm_stop_step=stop_step,
-         sigterm_checkpoint=os.path.basename(ck))
+         sigterm_checkpoint=os.path.basename(ck), seconds=since())
     shutil.rmtree(work)
     launches = segment.LAUNCHES
     _check(launches > 0, "phase 14 launched no segment-sum kernel")
+    seg = {key: _segment_sum_case("14-segment-sum", key[0], key[1], *inp,
+                                  ms_of=ms_of)
+           for key, inp in seg_inputs.items()}
     _say("14-citcoms-tail", segment_sum_launches=launches,
+         segment_sum_cases_s=since(),
          seconds=f"{time.perf_counter() - t_phase:.1f}")
-    return {"launches": launches}
+    return {"launches": launches,
+            "segment_sum": seg[finest]}
 
 
 def _tile_overlap(fn, tiles: int, tries: int = 8) -> float:
@@ -2868,53 +2955,14 @@ def main() -> int:
             "layer_sum": (cookbook2.rayleigh * s_.T * m._layer_weights,
                           m._layer_sorted, m._layer_order, cookbook2.nodez)}
         for shape, (flat, ids, order, n_seg) in cases.items():
-            seg_sum = lambda: segment.sorted_segment_sum(flat, ids, n_seg,
-                                                         order=order)
-            seg_plain = lambda: segment._sorted_segment_sum_plain(
-                flat, ids, n_seg, order=order)
-            ids_by_row = torch.empty_like(ids)
-            ids_by_row[order] = ids
-            seg_lib = lambda: torch.zeros(
-                (n_seg,) + tuple(flat.shape[1:]), dtype=flat.dtype,
-                device=dev).index_add_(0, ids_by_row, flat)
-            got = seg_sum()
-            _check(torch.equal(got, seg_sum()) and torch.equal(
-                got.cpu(), segment._sorted_segment_sum_plain(
-                    flat.cpu(), ids.cpu(), n_seg, order=order.cpu())),
-                f"segment sum at the {shape} ({name}): not bitwise "
-                "repeatable or not the host CPU's sum")
-            want = seg_plain()
-            e = float((got - want).abs().max())
-            _check(e <= (1e-12 if name == "f64" else REL_TOL)
-                   * float(want.abs().max()),
-                   f"segment sum at the {shape} ({name}) vs plain: {e}")
-            cols = flat[0].numel()
-            r = {"ms": ms_of(seg_sum, reps=50),
-                 "plain_ms": ms_of(seg_plain, reps=50),
-                 "library_ms": ms_of(seg_lib, reps=50),
-                 # blocks, ids and order read as passed; the sums written;
-                 # one add per element
-                 "bound": _bound(flat.numel() * flat.element_size()
-                                 + ids.numel() * ids.element_size()
-                                 + order.numel() * order.element_size()
-                                 + n_seg * cols * flat.element_size(),
-                                 flat.numel())}
+            r = _segment_sum_case("9-segment-sum", shape, name, flat, ids,
+                                  order, n_seg, ms_of)
             if (shape, name) == ("stencil_build", "f64"):
-                err["sorted_segment_sum"] = e
+                err["sorted_segment_sum"] = r["err"]
                 ms["sorted_segment_sum"] = r["ms"]
                 plain_ms["sorted_segment_sum"] = r["plain_ms"]
                 library_ms["sorted_segment_sum"] = r["library_ms"]
                 bound["sorted_segment_sum"] = r["bound"]
-            _say("9-segment-sum", shape=shape, dtype=name,
-                 rows=order.numel(), cols=cols, segments=n_seg,
-                 index=str(ids.dtype).replace("torch.", ""),
-                 bitwise_repeatable=True, equals_host_cpu=True,
-                 max_abs_err_vs_index_add=f"{e:.3g}",
-                 kernel_ms=f"{r['ms']:.4f}",
-                 plain_ms=f"{r['plain_ms']:.4f}",
-                 index_add_ms=f"{r['library_ms']:.4f}",
-                 bound_ms=f"{r['bound'][0]:.4f}",
-                 share_of_bound=f"{r['bound'][0] / r['ms']:.3f}")
     del m32, m64, ops, flat, cases
 
     laps.append((10, time.perf_counter()))
@@ -2937,9 +2985,15 @@ def main() -> int:
 
     laps.append((14, time.perf_counter()))
     # ---- 14: the rest of regional CitcomS at Cookbook2's size ------------
-    tail = _citcoms_tail(dev, cookbook2, cg9)
-    # the segment sum's launches: phase 9's Cookbook2 runs and phase 14's
-    launches["sorted_segment_sum"] += tail["launches"]
+    tail = _citcoms_tail(dev, cookbook2, cg9, ms_of)
+    # phase 14's segment sums are an entry of their own, read at the
+    # finest restriction: multigrid's restrictions make most of its
+    # launches, and this is the larger of their two shapes
+    launches["sorted_segment_sum_citcoms_tail"] = tail["launches"]
+    err["sorted_segment_sum_citcoms_tail"] = tail["segment_sum"]["err"]
+    for d, k in ((ms, "ms"), (plain_ms, "plain_ms"),
+                 (library_ms, "library_ms"), (bound, "bound")):
+        d["sorted_segment_sum_citcoms_tail"] = tail["segment_sum"][k]
 
     laps.append((None, time.perf_counter()))
     _say("phase-seconds", **{f"p{k}": f"{t1 - t0:.1f}" for (k, t0), (_, t1)
@@ -2949,6 +3003,8 @@ def main() -> int:
                "wsell_spmv": "g4s_tpu_torch/csrc/wsell_spmv.cu",
                "bwell_spmv": "g4s_tpu_torch/csrc/bwell_spmv.cu",
                "sorted_segment_sum": "g4s_tpu_torch/csrc/segment_sum.cu",
+               "sorted_segment_sum_citcoms_tail":
+                   "g4s_tpu_torch/csrc/segment_sum.cu",
                # CUDA generated per matrix by this module
                "static_spmv_chain": "g4s_tpu_torch/ops/static_spmv.py",
                "static_spmv_one": "g4s_tpu_torch/ops/static_spmv.py"}
@@ -2960,6 +3016,9 @@ def main() -> int:
         "sorted_segment_sum": "g4s_tpu/ops/segment.py:23 (jax.ops."
                               "segment_sum(indices_are_sorted=True); XLA, "
                               "no Pallas kernel)",
+        "sorted_segment_sum_citcoms_tail":
+            "g4s_tpu/models/citcoms/multigrid.py:106 (project_down: "
+            "jax.ops.segment_sum; XLA, no Pallas kernel)",
         "static_spmv_chain": "benchmarks/static_spmv_probe.py:42 "
                              "(_static_kernel)",
         "static_spmv_one": "benchmarks/static_spmv_probe2.py:42 "

@@ -329,7 +329,7 @@ class CitcomModel:
 
             def inner_solve(F_, acc_):
                 u, res, it = self.mg.solve(ops_all, F_, acc=acc_,
-                                           smooth_data=smooth)
+                                           smoothers=smooth)
                 return sol.CGResult(u, res, it)
 
             return sol.uzawa_cg(prob, V, P, F, fdotf, self.uzawa_params,

@@ -9,9 +9,10 @@ two global dots per level), plus the level-transfer operators of
 Solver_multigrid.c (interp_vector:187, project_vector:479) and the
 gauss_seidel smoother (:606).
 
-  - the default smoother is 8-color block Gauss-Seidel on the 27-point
-    nodal stencil (nodal.gauss_seidel_colored); damped Jacobi (omega=0.6)
-    remains as `smoother='jacobi'`;
+  - the smoother is 8-color block Gauss-Seidel on the 27-point nodal
+    stencil (nodal.gauss_seidel_colored), the reference's default; its
+    damped-Jacobi option has no caller in the regional model and is not
+    carried;
   - the coarsest level is solved with a fixed number of CG iterations,
     run on the device with the reference's stopping test applied as a
     mask, so it reads nothing back to the host;
@@ -39,14 +40,15 @@ from g4s_tpu_torch.models.citcoms import assembly as asm
 from g4s_tpu_torch.models.citcoms import solvers as sol
 from g4s_tpu_torch.models.citcoms.config import CitcomConfig
 from g4s_tpu_torch.models.citcoms.mesh import build_regional_mesh
-from g4s_tpu_torch.models.citcoms.nodal import (GSPlan, StencilPlan,
-                                                build_stencil,
+from g4s_tpu_torch.models.citcoms.nodal import (GSColors, GSPlan,
+                                                StencilPlan, build_stencil,
                                                 gauss_seidel_colored,
                                                 stencil_block_dinv)
 from g4s_tpu_torch.models.citcoms.shapes import build_geometry
 from g4s_tpu_torch.models.citcoms.viscosity import (element_materials,
                                                     viscosity_at_vpts)
 from g4s_tpu_torch.ops.segment import sorted_segment_sum
+from g4s_tpu_torch.sparse.containers import resolve_device
 
 
 def _coarsen(n_nodes: int) -> int:
@@ -181,12 +183,11 @@ class MGHierarchy:
     """Nested-level FE operators + the V-cycle solver."""
 
     def __init__(self, cfg: CitcomConfig, *, levels: int = None,
-                 dtype=torch.float64, smoother: str = "gs", device="cpu"):
+                 dtype=torch.float64, device="cuda"):
         if levels is None:
             levels = max(cfg.levels, 2)
         self.dtype = dtype
-        self.device = torch.device(device)
-        self.smoother = smoother
+        self.device = resolve_device(device)
         cfgs = [cfg]
         for _ in range(levels - 1):
             prev = cfgs[-1]
@@ -249,41 +250,27 @@ class MGHierarchy:
         return ops
 
     def build_smoothers(self, ops):
-        """Per-level GS ingredients (stencil + 3x3 block Dinv), built once
-        per viscosity update like Eqn_k (Construct_arrays.c:740)."""
-        if self.smoother != "gs":
-            return [None] * len(self.levels)
+        """Per-level GS smoothers (stencil, 3x3 block Dinv and their
+        per-color slices), built once per viscosity update like Eqn_k
+        (Construct_arrays.c:740)."""
         out = []
         for li, lv in enumerate(self.levels):
             st = build_stencil(ops[li].elt_k, self.stencil_plans[li])
-            out.append((st, stencil_block_dinv(st, lv.vbc_mask)))
+            out.append(GSColors.build(st, stencil_block_dinv(st, lv.vbc_mask),
+                                      lv.vbc_mask, self.gs_plans[li]))
         return out
 
-    def _smooth(self, li, ops, F, u, n_sweeps: int, smooth_data=None,
-                omega: float = 0.6):
-        """gauss_seidel role: 8-color block GS (default) or damped
-        Jacobi."""
-        if smooth_data is not None:
-            st, Dinv = smooth_data
-            return gauss_seidel_colored(st, Dinv, F, u,
-                                        self.levels[li].vbc_mask, n_sweeps,
-                                        self.gs_plans[li])
-        for _ in range(n_sweeps):
-            r = F - asm.assemble_del2_u(ops, u, strip=True)
-            u = u + omega * ops.BI * r
-        return u
-
-    def v_cycle(self, ops, F, u, *, down: int = 2, up: int = 2,
-                coarse_iters: int = 30, smooth_data=None):
+    def v_cycle(self, ops, smoothers, F, u, *, down: int = 2, up: int = 2,
+                coarse_iters: int = 30):
         """One V-cycle with line-search-scaled corrections
-        (mg_cycle, General_matrix_functions.c:214-280)."""
+        (mg_cycle, General_matrix_functions.c:214-280); `smoothers` from
+        build_smoothers(ops)."""
         levels = self.levels
         n = len(levels)
-        sm = smooth_data if smooth_data is not None else [None] * n
         residuals = []
         # down-stroke
         for li in range(n - 1):
-            u = self._smooth(li, ops[li], F, u, down, sm[li])
+            u = gauss_seidel_colored(smoothers[li], F, u, down)
             r = asm.strip_bcs(F - asm.assemble_del2_u(ops[li], u, strip=True),
                               levels[li].vbc_mask)
             residuals.append((F, u))
@@ -311,14 +298,14 @@ class MGHierarchy:
                                 sol._vdot(Adu, res) / sol._nonzero(denom),
                                 1.0)
             u = u_f + alpha * du
-            u = self._smooth(li, ops[li], F_f, u, up, sm[li])
+            u = gauss_seidel_colored(smoothers[li], F_f, u, up)
         return u
 
     def solve(self, ops, F, *, acc, max_cycles: int = 50, down: int = 2,
-              up: int = 2, smooth_data=None):
+              up: int = 2, smoothers=None):
         """Repeated V-cycles until ||r|| <= acc (solve_del2_u MG branch).
         Returns (u, residual, cycles); one host read per test of the
-        residual. `smooth_data` takes build_smoothers(ops) built once per
+        residual. `smoothers` takes build_smoothers(ops) built once per
         viscosity update; without it each call builds its own.
 
         The first cycle runs whatever the residual, as conj_grad's first
@@ -328,14 +315,13 @@ class MGHierarchy:
         Cookbook2's settings on a 9x9x9 mesh (ROADMAP.md section 3). Where
         the reference's solve stays finite, every inner solve ran a cycle,
         and the two agree."""
-        if smooth_data is None:
-            smooth_data = self.build_smoothers(ops)
+        if smoothers is None:
+            smoothers = self.build_smoothers(ops)
         u = torch.zeros_like(F)
         res = torch.sqrt(sol._vdot(F, F))
         it = 0
         while it == 0 or (it < max_cycles and sol.host_true(res > acc)):
-            u = self.v_cycle(ops, F, u, down=down, up=up,
-                             smooth_data=smooth_data)
+            u = self.v_cycle(ops, smoothers, F, u, down=down, up=up)
             r = F - asm.assemble_del2_u(ops[0], u, strip=True)
             r = asm.strip_bcs(r, self.levels[0].vbc_mask)
             res = torch.sqrt(sol._vdot(r, r))

@@ -163,8 +163,22 @@ def stencil_block_dinv(st: Stencil, vbc_mask):
     return torch.linalg.inv_ex(D)[0]
 
 
-def gauss_seidel_colored(st: Stencil, Dinv, F, u, vbc_mask, n_sweeps: int,
-                         plan: GSPlan):
+class GSColors(NamedTuple):
+    """A GS smoother's fixed per-color slices, built once per viscosity
+    update: each color's stencil rows, 3x3 block inverses and bc mask."""
+    W: Tuple[torch.Tensor, ...]        # per color: (m, 3, 81)
+    Dinv: Tuple[torch.Tensor, ...]     # per color: (m, 3, 3)
+    mask: Tuple[torch.Tensor, ...]     # per color: (m, 3) bool
+    plan: GSPlan
+
+    @staticmethod
+    def build(st: Stencil, Dinv, vbc_mask, plan: GSPlan) -> "GSColors":
+        return GSColors(tuple(st.W[n] for n in plan.nodes),
+                        tuple(Dinv[n] for n in plan.nodes),
+                        tuple(vbc_mask[n] for n in plan.nodes), plan)
+
+
+def gauss_seidel_colored(colors: GSColors, F, u, n_sweeps: int):
     """n_sweeps of 8-color block Gauss-Seidel on K u = F (u, F (nno, 3)).
 
     Colors update simultaneously (2x2x2 coloring has no intra-color
@@ -172,20 +186,18 @@ def gauss_seidel_colored(st: Stencil, Dinv, F, u, vbc_mask, n_sweeps: int,
     Gauss-Seidel sweep. The sweep count is fixed: nothing is read back to
     the host.
     """
+    plan = colors.plan
     noy, nox, noz = plan.grid
     u = u.clone(memory_format=torch.contiguous_format)
     ug = u.view(noy, nox, noz, 3)
-    per_color = []
-    for ci in range(len(_COLORS)):
-        nodes = plan.nodes[ci]
-        per_color.append((st.W[nodes], Dinv[nodes], F[nodes], vbc_mask[nodes],
-                          plan.nbr[ci]))
+    Fs = [F[nodes] for nodes in plan.nodes]
     for _ in range(n_sweeps):
         for ci, (cy, cx, cz) in enumerate(_COLORS):
-            Wc, Dc, Fc, mc, nbr = per_color[ci]
-            au = torch.bmm(Wc, u[nbr].reshape(-1, 81, 1)).reshape(-1, 3)
-            r = torch.where(mc, 0.0, Fc - au)
-            du = torch.bmm(Dc, r[:, :, None]).reshape(-1, 3)
+            mc = colors.mask[ci]
+            au = torch.bmm(colors.W[ci],
+                           u[plan.nbr[ci]].reshape(-1, 81, 1)).reshape(-1, 3)
+            r = torch.where(mc, 0.0, Fs[ci] - au)
+            du = torch.bmm(colors.Dinv[ci], r[:, :, None]).reshape(-1, 3)
             du = torch.where(mc, 0.0, du)
             ug[cy::2, cx::2, cz::2].add_(du.reshape(*plan.sizes[ci], 3))
     return u

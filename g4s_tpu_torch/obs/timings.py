@@ -153,15 +153,17 @@ def device_activities(fn, *, tries: int = 10) -> list:
             torch.cuda.synchronize()
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-        events = sorted((e for e in prof.events()
-                         if e.device_type == DeviceType.CUDA),
-                        key=lambda e: e.time_range.start)
-        marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
-        body = [i for i, e in enumerate(events)
-                if "spin_kernel" not in e.name]
+        # the profiler's raw events: prof.events() builds torch's event
+        # tree over every CPU op too, minutes of host time for a profile of
+        # 10^5 kernels
+        events = sorted((e for e in prof.profiler.kineto_results.events()
+                         if e.device_type() == DeviceType.CUDA),
+                        key=lambda e: e.start_ns())
+        names = [e.name() for e in events]
+        marks = [i for i, n in enumerate(names) if "spin_kernel" in n]
+        body = [i for i, n in enumerate(names) if "spin_kernel" not in n]
         if body and marks and marks[0] < body[0] and marks[-1] > body[-1]:
-            return [(events[i].name, events[i].time_range.elapsed_us())
-                    for i in body]
+            return [(names[i], events[i].duration_ns() / 1e3) for i in body]
     raise RuntimeError(f"torch.profiler recorded no device activity of fn "
                        f"in {tries} profiles (the last: {len(events)} "
                        f"device activities, {len(marks)} of them markers)")

@@ -113,7 +113,8 @@ def base():
 def mg_pair():
     cfg = cfg_of(**MG)
     return (jmg.MGHierarchy(cfg, levels=2),
-            multigrid.MGHierarchy(dataclasses.replace(cfg), levels=2))
+            multigrid.MGHierarchy(dataclasses.replace(cfg), levels=2,
+                                  device="cpu"))
 
 
 def test_gauss_seidel_colored_matches(base):
@@ -135,8 +136,8 @@ def test_gauss_seidel_colored_matches(base):
     plan = nodal.GSPlan.build(pm.stencil_plan)
     assert all(i.dtype == torch.int32 for i in plan.nodes + plan.nbr)
     u_t = t64(u)
-    got = nodal.gauss_seidel_colored(st, D, t64(F), u_t, pm.vbc_mask, 3,
-                                     plan)
+    colors = nodal.GSColors.build(st, D, pm.vbc_mask, plan)
+    got = nodal.gauss_seidel_colored(colors, t64(F), u_t, 3)
     assert rel(got, want) <= 1e-12
     assert torch.equal(u_t, t64(u))            # the input is left alone
 
@@ -159,27 +160,36 @@ def test_level_transfers_match(mg_pair):
         torch.int32
 
 
-@pytest.mark.parametrize("smoother", ["gs", "jacobi"])
-def test_mg_solve_matches(base, mg_pair, smoother):
-    """MGHierarchy.solve on a random stripped F to 1e-6 of ||F||: the
-    reference's u and cycle count, one host read per residual test."""
+@pytest.mark.parametrize("sweeps", [(2, 2), (1, 3)])
+def test_mg_solve_matches(base, mg_pair, sweeps):
+    """MGHierarchy.solve on a random stripped F to 1e-6 of ||F||, with
+    (down, up) smoothing sweeps: the reference's u and cycle count, one
+    host read per residual test."""
     jm, pm, js, ps = base
     jh, ph = mg_pair
-    jh.smoother = ph.smoother = smoother
-    try:
-        jops, pops = jh.build_ops(js.T), ph.build_ops(ps.T)
-        F = np.asarray(jasm.strip_bcs(jnp.asarray(np.random.default_rng(
-            5).standard_normal((pm.mesh.nno, 3))), jm.vbc_mask))
-        acc = 1e-6 * float(np.linalg.norm(F))
-        ju, jres, jit = jh.solve(jops, jnp.asarray(F), acc=acc,
-                                 max_cycles=20)
-        from g4s_tpu_torch.models.citcoms import solvers
-        solvers.HOST_SYNCS = 0
-        u, res, it = ph.solve(pops, t64(F), acc=acc, max_cycles=20)
-        assert it == int(jit) and solvers.HOST_SYNCS == it - 1 + (it < 20)
-        assert rel(u, ju) <= 1e-10 and rel(res, jres) <= 1e-10
-    finally:
-        jh.smoother = ph.smoother = "gs"
+    down, up = sweeps
+    jops, pops = jh.build_ops(js.T), ph.build_ops(ps.T)
+    F = np.asarray(jasm.strip_bcs(jnp.asarray(np.random.default_rng(
+        5).standard_normal((pm.mesh.nno, 3))), jm.vbc_mask))
+    acc = 1e-6 * float(np.linalg.norm(F))
+    ju, jres, jit = jh.solve(jops, jnp.asarray(F), acc=acc, max_cycles=20,
+                             down=down, up=up)
+    from g4s_tpu_torch.models.citcoms import solvers
+    solvers.HOST_SYNCS = 0
+    u, res, it = ph.solve(pops, t64(F), acc=acc, max_cycles=20, down=down,
+                          up=up)
+    assert it == int(jit) and solvers.HOST_SYNCS == it - 1 + (it < 20)
+    assert rel(u, ju) <= 1e-10 and rel(res, jres) <= 1e-10
+
+
+def test_mg_hierarchy_defaults_to_the_card():
+    """MGHierarchy, like the port's other entry points, runs on the card
+    unless asked for the CPU: without a card its default raises."""
+    if torch.cuda.is_available():
+        assert multigrid.MGHierarchy(cfg_of(**MG)).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        multigrid.MGHierarchy(cfg_of(**MG), levels=2)
 
 
 def test_mg_solve_runs_a_cycle_below_acc(base, mg_pair):

@@ -513,9 +513,10 @@ def test_gauss_seidel_sweep_on_cuda_matches_cpu(cuda):
         st = nodal.build_stencil(ops.elt_k, m.stencil_plan)
         D = nodal.stencil_block_dinv(st, m.vbc_mask)
         plan = nodal.GSPlan.build(m.stencil_plan)
+        colors = nodal.GSColors.build(st, D, m.vbc_mask, plan)
         out.append(nodal.gauss_seidel_colored(
-            st, D, torch.from_numpy(F).to(dev), torch.from_numpy(u).to(dev),
-            m.vbc_mask, 3, plan).cpu())
+            colors, torch.from_numpy(F).to(dev), torch.from_numpy(u).to(dev),
+            3).cpu())
     assert float((out[1] - out[0]).abs().max()) <= \
         1e-12 * float(out[0].abs().max())
 
