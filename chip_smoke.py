@@ -126,7 +126,14 @@ Run from the root of a checkout: `python3 chip_smoke.py`. It
      in f64 the RHS and Jacobian at y0 and tau/2 and the RK initial state
      on the card against the host CPU, and the host CPU's run_single (tau
      within 1e-4); the card's run must hold each element and U, rise by
-     500 K and give RK and IG apart. No Pallas kernel lies on this path
+     500 K and give RK and IG apart; the RK case run a second time on
+     the card, right after the CLI's run: tau and the final state within
+     1e-10, and whether the two runs are equal bit for bit, printed (past
+     ignition the step count is set by rounding: a 1e-15 change of T0
+     moves the reference's own count at 45 species from 1,400 to 1,725
+     steps, tests/cantera_step_spread.py; and the card's runs part by a
+     bit in a step size after some earlier host work in the process,
+     ROADMAP.md section 3). No Pallas kernel lies on this path
      in the reference (its stoichiometric products are dense XLA dots,
      its LU is XLA's), so no hand kernel does here (launch counts
      printed, 0).
@@ -154,6 +161,25 @@ Run from the root of a checkout: `python3 chip_smoke.py`. It
      tracers' element-to-node map; f64 and f32), held and timed as in
      phase 9. The phase's launches are a kernels-line entry of their own,
      timed at the finest restriction in f64.
+ 15. the CitcomS full sphere (FullSphereModel, 12 caps of 17x17x9 nodes:
+     24,576 elements, 27,666 nodes; Ra 1e5, radius_inner 0.55, free slip,
+     a temperature blob): in f64 the initial solve and a step at a fixed
+     cap of 1 Uzawa x 20 CG, on the card against the host CPU within
+     1e-10 with equal counts, two card runs bitwise equal, the step's V
+     free of net rotation and no host wait in the step but the counted
+     solver reads; a step at 3 x 60 against the host CPU beside what a
+     1e-15 change of T moves the CPU's own; in f32 the initial solve to
+     tolerance, a warm-up and 5 timed steps (s/step, inner CG, host
+     syncs, device kernels, busy ms, idle share); the thermochemical step
+     (10 tracers per element, 245,760, seed 0): f64 card against host
+     CPU (positions within 1e-13, compositions and the nodal C equal,
+     fields 1e-10), then 3 timed f32 steps; the coupled Exchanger step
+     with Cookbook2 inside the sphere, one-way and two-way, f64 card
+     against host CPU within 1e-10, the fine boundary T equal to the
+     coarse interpolation, one f32 two-way step timed; the segment-sum
+     kernel at the full sphere's assembly scatter and layer sums, f64 and
+     f32, held and timed as in phase 9, its launches an entry of their
+     own.
 
 Device times are medians per call between back-to-back calls queued
 behind a device sleep (g4s_tpu_torch.obs.timings.device_ms); "cold" times
@@ -234,6 +260,10 @@ CANTERA_T_RISE = 500.0
 CANTERA_CPU_T_END_OVER_TAU = 1.25
 CANTERA_HALF_RTOL = 1e-6
 CANTERA_WINDOW = 40
+# the RK case run a second time on the card: tau and the final state
+# relative to the first run (rounding from another history of the process
+# moved tau by up to 4.5e-12 on an H100)
+CANTERA_REPEAT_TOL = 1e-10
 # the rest of regional CitcomS (phase 14): multigrid, the thermochemical
 # step and one step of each other branch, f64 on the card against the host
 # CPU relative to each field's largest magnitude; multigrid's initial vrms
@@ -242,6 +272,23 @@ CANTERA_WINDOW = 40
 CITCOMS_TAIL_TOL = 1e-10
 CITCOMS_MG_VRMS_TOL = 1e-3
 CITCOMS_TRACERS_PER_ELEMENT = 10
+# the CitcomS full sphere (phase 15): nodes per cap (nodex = nodey, nodez);
+# Ra 1e5, radius_inner 0.55, free slip, tests/test_citcoms.py's blob. Free
+# slip leaves the rigid rotations in the Stokes nullspace and the Uzawa/CG
+# iterates then amplify rounding (at 5x5x4 a 1e-15 change of T moves the
+# port's V by 1.2e-14 at 1 Uzawa x 20 CG, 5.7e-7 at 1 x 40, 6.1e-9 at
+# 3 x 60: tests/citcoms_full_rounding_spread.py), so f64 on the card is held
+# to the host CPU within CITCOMS_FULL_TOL at CITCOMS_FULL_FIXED, and at
+# CITCOMS_FULL_SPREAD_CAP within CITCOMS_FULL_SPREAD_FACTOR times what a
+# 1e-15 change of T moves the host CPU's own step
+CITCOMS_FULL_NODES = (17, 9)
+CITCOMS_FULL_TOL = 1e-10
+CITCOMS_FULL_POS_TOL = 1e-13
+CITCOMS_FULL_FIXED = dict(accuracy=0.0, piterations=1, vlowstep=20)
+CITCOMS_FULL_SPREAD_CAP = dict(accuracy=0.0, piterations=3, vlowstep=60)
+CITCOMS_FULL_SPREAD_FACTOR = 100.0
+CITCOMS_FULL_F32_STEPS = 5
+CITCOMS_FULL_TRACER_STEPS = 3
 
 
 def _say(phase: str, **kw) -> None:
@@ -1562,7 +1609,7 @@ def _cantera_shock_tube(dev) -> None:
 
     from g4s_tpu_torch.drivers import shock_tube as shock_tube_cli
     from g4s_tpu_torch.models.cantera import (R_GAS, ShockTubeBenchmark,
-                                              stoich_mixture)
+                                              ignition_delay, stoich_mixture)
     from g4s_tpu_torch.obs.timings import device_activities
     from g4s_tpu_torch.ops import bwell_spmv, odeint, route, segment, \
         wsell_spmv
@@ -1600,6 +1647,33 @@ def _cantera_shock_tube(dev) -> None:
     t0 = time.perf_counter()
     out = shock_tube_cli.main(["--mech", path])
     run_s = time.perf_counter() - t0
+    # ---- 1b: the RK case again on the card, as the CLI ran it, right
+    # after it: tau and the final state within CANTERA_REPEAT_TOL, and
+    # whether the steps, RHS and Jacobian calls, accepted steps, records
+    # and final state are equal bit for bit (printed: they are not after
+    # some histories of the process, ROADMAP.md section 3) ----
+    res1, tau1 = out["result_RG"], out["tau_RG"]
+    t0 = time.perf_counter()
+    tau2, res2 = ignition_delay(bench.r_rk, T0, P0,
+                                stoich_mixture(bench.r_rk.mech), rtol=rtol,
+                                atol=atol)
+    rep_s = time.perf_counter() - t0
+    bitwise = ((res1.steps, res1.n_fev, res1.n_jev)
+               == (res2.steps, res2.n_fev, res2.n_jev) and tau2 == tau1
+               and all(torch.equal(a, b) for a, b in (
+                   (res1.y, res2.y), (res1.record, res2.record),
+                   (res1.record_t, res2.record_t))))
+    tau_err = abs(tau2 - tau1) / tau1
+    y_err = _rel_err(res2.y.cpu(), res1.y.cpu())
+    _check(tau_err <= CANTERA_REPEAT_TOL and y_err <= CANTERA_REPEAT_TOL,
+           f"shock tube RK: a second card run's tau {tau2} against {tau1}, "
+           f"final state {y_err}")
+    _say("13-cantera-rk-repeat", steps_first=res1.steps,
+         steps_repeat=res2.steps, n_fev=f"{res1.n_fev},{res2.n_fev}",
+         n_jev=f"{res1.n_jev},{res2.n_jev}", bitwise_equal=bitwise,
+         tau_rel_err=f"{tau_err:.3g}", y_rel_err=f"{y_err:.3g}",
+         tol=CANTERA_REPEAT_TOL, wall_s=f"{rep_s:.3f}")
+
     phases = {"RG": (bench.r_rk, host.r_rk), "IG": (bench.r_ig, host.r_ig)}
     n = m.nspec + 1
     for name, (r, r_cpu) in phases.items():
@@ -1711,6 +1785,7 @@ def _cantera_shock_tube(dev) -> None:
              cpu_wall_s=f"{out_c[f'wall_{name}']:.3f}")
     _check(out["tau_RG"] != out["tau_IG"],
            f"RK and IG ignition delays equal: {out['tau_RG']}")
+
     tmp.cleanup()
     _say("13-cantera", cli_run_s=f"{run_s:.3f}",
          tau_RG_over_IG=f"{out['tau_RG'] / out['tau_IG']:.6f}",
@@ -1738,14 +1813,22 @@ def _timed_steps(s, steps: int, step):
 
 def _profiled_step(step, s):
     """Device kernels, busy ms and segment sums of one more step(s) under
-    torch.profiler."""
+    torch.profiler, and the kernels that took the most of its busy time
+    ("top": name, launches, ms)."""
     from g4s_tpu_torch.obs.timings import device_activities
     t0 = time.perf_counter()
     acts = device_activities(lambda: step(s))
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for name, us in acts:
+        by_name[name][0] += 1
+        by_name[name][1] += us / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:4]
     return {"kernels": len(acts), "seconds": time.perf_counter() - t0,
             "busy_ms": sum(us for _, us in acts) / 1e3,
             "segment_sums": sum("sorted_segment_sum_kernel" in name
-                                for name, _ in acts)}
+                                for name, _ in acts),
+            "top": ";".join(f"{name[:48].replace(' ', '_')}:{n}:{ms:.2f}"
+                            for name, (n, ms) in top)}
 
 
 def _state_err(a, b, names=("T", "Tdot", "V", "P", "dt", "time")) -> dict:
@@ -2112,6 +2195,277 @@ def _citcoms_tail(dev, cookbook2, cg9: dict, ms_of) -> dict:
          seconds=f"{time.perf_counter() - t_phase:.1f}")
     return {"launches": launches,
             "segment_sum": seg[finest]}
+
+
+def _citcoms_full(dev, cookbook2, ms_of) -> dict:
+    """Phase 15: the CitcomS full sphere at CITCOMS_FULL_NODES per cap
+    (FullSphereModel, its tracers, the coupled Exchanger step with
+    Cookbook2 inside it). Returns the segment-sum kernel's launches over
+    the phase and its reading at the f64 assembly scatter."""
+    import copy
+    import numpy as np
+    import torch
+    from g4s_tpu_torch.models.citcoms import (CitcomModel, CoupledRun,
+                                              FullSphereModel, full_tracers,
+                                              solvers)
+    from g4s_tpu_torch.models.citcoms.observables import rms_velocity
+    from g4s_tpu_torch.ops import segment
+    t_phase = time.perf_counter()
+    lap = [t_phase]
+
+    def since() -> str:
+        t, lap[0] = lap[0], time.perf_counter()
+        return f"{lap[0] - t:.1f}"
+
+    f64, f32 = torch.float64, torch.float32
+    tol = CITCOMS_FULL_TOL
+    segment.LAUNCHES = 0
+    n, nz = CITCOMS_FULL_NODES
+    base = dataclasses.replace(
+        cookbook2, nodex=n, nodey=n, nodez=nz, radius_inner=0.55,
+        radius_outer=1.0, rayleigh=1e5, num_mat=1, topvbc=0,
+        topvbxval=0.0, topvbyval=0.0)
+    fixed = dataclasses.replace(base, **CITCOMS_FULL_FIXED)
+
+    def blob_state(model):
+        """tests/test_citcoms.py's blob on the conductive profile."""
+        s = model.init_state()
+        blob = np.exp(-np.sum((model._xyz - np.array([0.6, 0.3, 0.2])) ** 2,
+                              axis=1) / 0.05)
+        T = np.clip(s.T.cpu().double().numpy() + 0.3 * blob, 0, 1)
+        return dataclasses.replace(s, T=torch.as_tensor(
+            T, dtype=model.dtype, device=model.device))
+
+    def with_caps(model, cfg):
+        """The model on the same mesh with cfg's solver caps."""
+        m = copy.copy(model)
+        m.cfg = cfg
+        m.uzawa_params = solvers.UzawaParams(
+            cfg.accuracy, cfg.inner_accuracy_scale, cfg.piterations,
+            cfg.vlowstep, cfg.check_pressure_convergence)
+        return m
+
+    def fixed_run(model):
+        s, mon = model.initial_solve(blob_state(model))
+        s1, d = model.step(s)
+        return s, s1, (mon.outer_iterations, mon.inner_iterations,
+                       d.uzawa_iterations, d.inner_iterations)
+
+    def counts(d):
+        return d.uzawa_iterations, d.inner_iterations
+
+    def equal(a, b, names=("T", "Tdot", "V", "P", "dt", "time")):
+        return all(torch.equal(getattr(a, k), getattr(b, k)) for k in names)
+
+    # ---- (a) f64 at a fixed cap, card against host CPU ------------------
+    t0 = time.perf_counter()
+    g64 = FullSphereModel(fixed, dtype=f64, device=dev)
+    build_s = time.perf_counter() - t0
+    h64 = FullSphereModel(fixed, dtype=f64, device="cpu")
+    ga, gb = fixed_run(g64), fixed_run(g64)
+    _check(ga[2] == gb[2] and equal(ga[0], gb[0]) and equal(ga[1], gb[1]),
+           "full sphere f64: two card runs differ")
+    t0 = time.perf_counter()
+    ha = fixed_run(h64)
+    host_s = time.perf_counter() - t0
+    _check(ga[2] == ha[2] == (1, 40, 1, 40),
+           f"full sphere f64 counts, card {ga[2]} host CPU {ha[2]}")
+    err = [max(_state_err(ga[0], ha[0], ("V", "P")).values()),
+           max(_state_err(ga[1], ha[1]).values())]
+    _check(max(err) <= tol, f"full sphere f64, card against host CPU: {err}")
+    s1 = ga[1]
+    rot = _rel_err(g64.remove_net_rotation(s1.V).cpu(), s1.V.cpu())
+    _check(rot <= tol, f"remove_net_rotation moved the step's V by {rot}")
+    torch.cuda.synchronize()
+    rot_syncs = _syncs(lambda: g64.remove_net_rotation(s1.V))
+    solvers.HOST_SYNCS = 0
+    step_syncs = _syncs(lambda: g64.step(ga[0]))
+    _check(rot_syncs == 0 and step_syncs == solvers.HOST_SYNCS,
+           f"full sphere step: {step_syncs} host waits, "
+           f"{solvers.HOST_SYNCS} counted; net rotation {rot_syncs}")
+    # a longer fixed cap: the card against the host CPU beside how far a
+    # 1e-15 change of T moves the host CPU's own step
+    cap = dataclasses.replace(base, **CITCOMS_FULL_SPREAD_CAP)
+    g3, h3 = with_caps(g64, cap), with_caps(h64, cap)
+    sg3, dg3 = g3.step(ga[0])
+    sh0 = _to_host(h64, ga[0])
+    sh3, dh3 = h3.step(sh0)
+    wiggle = 1 + 1e-15 * torch.from_numpy(
+        np.random.default_rng(0).standard_normal(h64.mesh.nno))
+    sw3, _ = h3.step(dataclasses.replace(sh0, T=sh0.T * wiggle))
+    e3 = max(_state_err(sg3, sh3).values())
+    spread3 = max(_state_err(sw3, sh3).values())
+    _check(counts(dg3) == counts(dh3) == (3, 240)
+           and e3 <= max(tol, CITCOMS_FULL_SPREAD_FACTOR * spread3),
+           f"full sphere f64 at 3 x 60: card against host CPU {e3}, a "
+           f"1e-15 change of T on the host CPU {spread3}")
+    _say("15-full-f64", nodes_per_cap=f"{n}x{n}x{nz}", nel=g64.mesh.nel,
+         nno=g64.mesh.nno, model_build_s=f"{build_s:.2f}", runs=2,
+         deterministic=True, uzawa_cg="1/40,1/40",
+         rel_err_vs_host_cpu=",".join(f"{e:.3g}" for e in err), tol=tol,
+         net_rotation_rel=f"{rot:.3g}", step_host_waits=step_syncs,
+         counted_reads=solvers.HOST_SYNCS, net_rotation_waits=rot_syncs,
+         cap_3x60_rel_err_vs_host_cpu=f"{e3:.3g}",
+         cap_3x60_host_cpu_1e15_spread=f"{spread3:.3g}",
+         host_cpu_s=f"{host_s:.2f}", seconds=since())
+    del gb, sg3, sh3, sw3, g3, h3
+
+    # ---- (b) f32 to tolerance, timed ------------------------------------
+    g32 = FullSphereModel(base, dtype=f32, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s32, mon32 = g32.initial_solve(blob_state(g32))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    s32, _ = g32.step(s32)                                    # warm-up
+    t32 = _timed_steps(s32, CITCOMS_FULL_F32_STEPS, g32.step)
+    p32 = _profiled_step(g32.step, t32["s"])
+    vrms = float(rms_velocity(g32, t32["s"].V))
+    _check(bool(torch.isfinite(t32["s"].V).all()) and vrms > 0,
+           f"full sphere f32: vrms {vrms}")
+    wall = t32["wall_s"]
+    _say("15-full-f32", initial_uzawa_cg=f"{mon32.outer_iterations}/"
+         f"{mon32.inner_iterations}", initial_solve_s=f"{init_s:.3f}",
+         warmup_steps=1, timed_steps=CITCOMS_FULL_F32_STEPS,
+         s_per_step=f"{wall:.4f}", inner_cg_per_step=t32["inner"],
+         host_syncs_per_step=t32["host_syncs"],
+         device_kernels_per_step=p32["kernels"],
+         device_busy_ms_per_step=f"{p32['busy_ms']:.2f}",
+         device_idle_share=f"{max(0.0, 1 - p32['busy_ms'] / 1e3 / wall):.3f}",
+         segment_sums_per_step=p32["segment_sums"], vrms=f"{vrms:.6g}",
+         top_kernels_name_launches_ms=p32["top"],
+         profile_s=f"{p32['seconds']:.1f}", seconds=since())
+
+    # ---- (c) the thermochemical step -------------------------------------
+    pos0, fl0 = full_tracers.seed_tracers(
+        g64.mesh, CITCOMS_TRACERS_PER_ELEMENT, seed=0)
+    flg, flh = torch.from_numpy(fl0).to(dev), torch.from_numpy(fl0)
+    sg, dg, pg, Cg = g64.step_tracers(ga[0], torch.from_numpy(pos0).to(dev),
+                                      flg)
+    sh, dh, ph, Ch = h64.step_tracers(_to_host(h64, ga[0]),
+                                      torch.from_numpy(pos0), flh)
+    comp_g, _ = full_tracers.element_composition(g64.tracer_field, g64.mesh,
+                                                 pg, flg)
+    comp_h, _ = full_tracers.element_composition(h64.tracer_field, h64.mesh,
+                                                 ph, flh)
+    pos_err = _rel_err(pg.cpu(), ph)
+    t_err = max(_state_err(sg, sh).values())
+    _check(counts(dg) == counts(dh) and pos_err <= CITCOMS_FULL_POS_TOL
+           and torch.equal(comp_g.cpu(), comp_h) and torch.equal(Cg.cpu(), Ch)
+           and t_err <= tol and 0.0 <= float(Cg.min())
+           and float(Cg.max()) <= 1.0,
+           f"full-sphere tracer step, card against host CPU: counts "
+           f"{counts(dg)} {counts(dh)}, positions {pos_err}, fields {t_err}")
+    _say("15-full-thermochemical-f64", tracers=pos0.shape[0], seed=0,
+         compositions_equal=True, nodal_C_equal=True,
+         pos_rel_err=f"{pos_err:.3g}", pos_tol=CITCOMS_FULL_POS_TOL,
+         field_rel_err=f"{t_err:.3g}", tol=tol, seconds=since())
+    del sh, ph, Ch, comp_h
+    box = {"pos": torch.from_numpy(pos0).to(dev, f32)}
+
+    def tstep(s):
+        s, d, box["pos"], box["C"] = g32.step_tracers(s, box["pos"], flg)
+        return s, d
+
+    st, _ = tstep(t32["s"])                                   # warm-up
+    tt = _timed_steps(st, CITCOMS_FULL_TRACER_STEPS, tstep)
+    pt = _profiled_step(tstep, tt["s"])
+    C = box["C"]
+    _check(bool(torch.isfinite(tt["s"].V).all()) and float(C.min()) >= 0.0
+           and float(C.max()) <= 1.0,
+           f"full-sphere tracer step f32: C in [{float(C.min())}, "
+           f"{float(C.max())}]")
+    _say("15-full-thermochemical-f32", tracers=pos0.shape[0],
+         timed_steps=CITCOMS_FULL_TRACER_STEPS,
+         s_per_step=f"{tt['wall_s']:.4f}", inner_cg_per_step=tt["inner"],
+         host_syncs_per_step=tt["host_syncs"],
+         device_kernels_per_step=pt["kernels"],
+         device_busy_ms_per_step=f"{pt['busy_ms']:.2f}",
+         device_idle_share=f"{max(0.0, 1 - pt['busy_ms'] / 1e3 / tt['wall_s']):.3f}",
+         C_min=f"{float(C.min()):.4g}", C_max=f"{float(C.max()):.4g}",
+         top_kernels_name_launches_ms=pt["top"],
+         profile_s=f"{pt['seconds']:.1f}", seconds=since())
+    del box, st, tt
+
+    # ---- (d) the coupled step: Cookbook2 inside the full sphere ---------
+    fine_fixed = dataclasses.replace(cookbook2, accuracy=0.0, piterations=3,
+                                     vlowstep=60)
+    fg = CitcomModel(fine_fixed, dtype=f64, device=dev)
+    fh = CitcomModel(fine_fixed, dtype=f64, device="cpu")
+    cp_err = {}
+    for two_way in (False, True):
+        rg = CoupledRun(g64, fg, two_way=two_way, device=dev)
+        rh = CoupledRun(h64, fh, two_way=two_way, device="cpu")
+        scg, sfg, (dcg, dfg) = rg.step(ga[0], fg.init_state())
+        sch, sfh, (dch, dfh) = rh.step(_to_host(h64, ga[0]), fh.init_state())
+        e = max(max(_state_err(scg, sch).values()),
+                max(_state_err(sfg, sfh).values()))
+        _check((counts(dcg), counts(dfg)) == (counts(dch), counts(dfh))
+               and e <= tol,
+               f"coupled step (two_way={two_way}), card against host CPU: "
+               f"{e}, counts {counts(dcg)} {counts(dfg)} / {counts(dch)} "
+               f"{counts(dfh)}")
+        if two_way:
+            inside = rg.interior_ids
+            want = rg.restrict(torch.zeros_like(scg.T), sfg.T)[inside]
+            _check(torch.equal(scg.T[inside], want),
+                   "two-way: the coarse interior is not the fine T")
+        else:
+            tbc_val, _ = rg.exchange(scg.T, scg.V)
+            b = rg.b_nodes
+            gap = float((sfg.T[b] - tbc_val[b]).abs().max())
+            _check(gap <= tol, f"fine boundary T off the coarse "
+                               f"interpolation by {gap}")
+        cp_err["two_way" if two_way else "one_way"] = e
+    _say("15-coupled-f64", fine=f"{cookbook2.nodex}x{cookbook2.nodey}x"
+         f"{cookbook2.nodez}", boundary_nodes=len(rg.b_nodes),
+         coarse_interior_nodes=int(rg.interior_ids.numel()),
+         **{f"{k}_rel_err_vs_host_cpu": f"{v:.3g}" for k, v in cp_err.items()},
+         fine_boundary_gap=f"{gap:.3g}", tol=tol, seconds=since())
+    del fg, fh, rg, rh, h64
+    # one f32 two-way step, timed; every kernel it runs ran above at these
+    # shapes (the fine model's in phase 9). The fine Stokes solve, its six
+    # faces' velocities imposed from the coarse solution, may run to its
+    # Uzawa cap, so the step is not profiled
+    f32m = CitcomModel(cookbook2, dtype=f32, device=dev)
+    r32 = CoupledRun(g32, f32m, two_way=True, device=dev)
+    sf0, _ = f32m.initial_solve(f32m.init_state())
+    torch.cuda.synchronize()
+    solvers.HOST_SYNCS = 0
+    t0 = time.perf_counter()
+    sc1, sf1, (dc, df) = r32.step(t32["s"], sf0)
+    torch.cuda.synchronize()
+    cwall = time.perf_counter() - t0
+    _check(bool(torch.isfinite(sf1.T).all() & torch.isfinite(sc1.T).all()),
+           "coupled f32 step: non-finite T")
+    _say("15-coupled-f32", s_per_step=f"{cwall:.4f}",
+         coarse_uzawa_cg=f"{dc.uzawa_iterations}/{dc.inner_iterations}",
+         fine_uzawa_cg=f"{df.uzawa_iterations}/{df.inner_iterations}",
+         host_syncs=solvers.HOST_SYNCS, seconds=since())
+    del f32m, r32, sf0, sc1, sf1
+
+    # ---- (e) the segment sum at the full sphere's two shapes -------------
+    launches = segment.LAUNCHES
+    _check(launches > 0, "phase 15 launched no segment-sum kernel")
+    rng = np.random.default_rng(15)
+    seg = {}
+    for name, m, s_ in (("f64", g64, ga[1]), ("f32", g32, t32["s"])):
+        p_el = torch.from_numpy(rng.standard_normal(m.mesh.nel)).to(
+            dev, m.dtype)
+        cases = {
+            "full_assembly_scatter": (
+                (m.G * p_el[:, None, None]).reshape(-1, 3).contiguous(),
+                m.plan.seg_ids, m.plan.order, m.plan.nno),
+            "full_layer_sum": (m.cfg.rayleigh * s_.T * m.nmass,
+                               m._layer_sorted, m._layer_order, nz)}
+        for shape, inp in cases.items():
+            seg[(shape, name)] = _segment_sum_case(
+                "15-segment-sum", shape, name, *inp, ms_of=ms_of)
+    _say("15-citcoms-full", segment_sum_launches=launches,
+         segment_sum_cases_s=since(),
+         seconds=f"{time.perf_counter() - t_phase:.1f}")
+    return {"launches": launches,
+            "segment_sum": seg[("full_assembly_scatter", "f64")]}
 
 
 def _tile_overlap(fn, tiles: int, tries: int = 8) -> float:
@@ -2995,6 +3349,17 @@ def main() -> int:
                  (library_ms, "library_ms"), (bound, "bound")):
         d["sorted_segment_sum_citcoms_tail"] = tail["segment_sum"][k]
 
+    laps.append((15, time.perf_counter()))
+    # ---- 15: the CitcomS full sphere, its tracers and the coupled step --
+    full = _citcoms_full(dev, cookbook2, ms_of)
+    # phase 15's segment sums are an entry of their own, read at the
+    # assembly scatter, the shape of most of its launches
+    launches["sorted_segment_sum_citcoms_full"] = full["launches"]
+    err["sorted_segment_sum_citcoms_full"] = full["segment_sum"]["err"]
+    for d, k in ((ms, "ms"), (plain_ms, "plain_ms"),
+                 (library_ms, "library_ms"), (bound, "bound")):
+        d["sorted_segment_sum_citcoms_full"] = full["segment_sum"][k]
+
     laps.append((None, time.perf_counter()))
     _say("phase-seconds", **{f"p{k}": f"{t1 - t0:.1f}" for (k, t0), (_, t1)
                              in zip(laps, laps[1:])},
@@ -3004,6 +3369,8 @@ def main() -> int:
                "bwell_spmv": "g4s_tpu_torch/csrc/bwell_spmv.cu",
                "sorted_segment_sum": "g4s_tpu_torch/csrc/segment_sum.cu",
                "sorted_segment_sum_citcoms_tail":
+                   "g4s_tpu_torch/csrc/segment_sum.cu",
+               "sorted_segment_sum_citcoms_full":
                    "g4s_tpu_torch/csrc/segment_sum.cu",
                # CUDA generated per matrix by this module
                "static_spmv_chain": "g4s_tpu_torch/ops/static_spmv.py",
@@ -3019,6 +3386,10 @@ def main() -> int:
         "sorted_segment_sum_citcoms_tail":
             "g4s_tpu/models/citcoms/multigrid.py:106 (project_down: "
             "jax.ops.segment_sum; XLA, no Pallas kernel)",
+        "sorted_segment_sum_citcoms_full":
+            "g4s_tpu/models/citcoms/assembly.py:52 (ScatterPlan.scatter "
+            "on the full sphere: jax.ops.segment_sum; XLA, no Pallas "
+            "kernel)",
         "static_spmv_chain": "benchmarks/static_spmv_probe.py:42 "
                              "(_static_kernel)",
         "static_spmv_one": "benchmarks/static_spmv_probe2.py:42 "

@@ -39,7 +39,13 @@ def mech_tensor(mech: Mechanism, name: str, like: torch.Tensor):
     if t is None:
         a = np.asarray(getattr(mech, name))
         dtype = like.dtype if a.dtype.kind == "f" else None
-        t = torch.as_tensor(a, dtype=dtype, device=like.device)
+        # made outside any torch.func transform the caller is in: inside
+        # one a new tensor is wrapped at that transform's level, and the
+        # cached wrapper would escape into later calls, where another
+        # transform takes it for one of its own (a Jacobian after a first
+        # RHS call then fails, or runs other kernels)
+        with torch._C._DisableFuncTorch():
+            t = torch.as_tensor(a, dtype=dtype, device=like.device)
         cache[key] = t
     return t
 

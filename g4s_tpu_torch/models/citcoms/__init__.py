@@ -7,3 +7,7 @@ from g4s_tpu_torch.models.citcoms.mesh import (  # noqa: F401
 from g4s_tpu_torch.models.citcoms.driver import (  # noqa: F401
     CitcomModel, State, state_from_numpy,
 )
+from g4s_tpu_torch.models.citcoms.full_driver import (  # noqa: F401
+    FullSphereModel,
+)
+from g4s_tpu_torch.models.citcoms.exchanger import CoupledRun  # noqa: F401

@@ -86,7 +86,7 @@ def cfl_timestep(adv: AdvectionGeometry, ien, V, *, finetunedt: float,
     """std_timestep: dt = min(finetunedt * 0.5/max_e(sum |u_c|/size),
     diff_dt)."""
     if fixed_timestep != 0.0:
-        return torch.tensor(fixed_timestep, dtype=V.dtype, device=V.device)
+        return torch.full((), fixed_timestep, dtype=V.dtype, device=V.device)
     vv = element_velocities(adv, ien, V)                   # (nel, 8, 3)
     uc = torch.einsum("eai,a->ei", vv, adv.N_center[:, 0])  # center velocity
     rate = (uc.abs() / adv.e_size).sum(dim=1)              # (nel,)

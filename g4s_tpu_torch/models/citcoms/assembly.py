@@ -70,8 +70,10 @@ def build_elt_k(B, gda, gweight, evisc):
     """elt_k[e,(a i),(b j)] = sum_g W[e,g] B^T D B   with
     W = w_g * |J|_g * eta_g and D = diag(2,2,2,1,1,1)."""
     W = gweight[None, :] * gda * evisc                        # (nel, g)
-    D = torch.tensor([2.0, 2.0, 2.0, 1.0, 1.0, 1.0], dtype=B.dtype,
-                     device=B.device)
+    # filled on the device: a tensor made from a host list would be a
+    # copy that waits for the device
+    D = torch.ones(6, dtype=B.dtype, device=B.device)
+    D[:3].fill_(2.0)
     BW = B * (W[:, :, None, None, None] * D[None, None, :, None, None])
     K = torch.einsum("egsai,egsbj->eaibj", BW, B)
     return K.reshape(B.shape[0], 24, 24)

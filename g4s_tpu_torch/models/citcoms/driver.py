@@ -493,10 +493,11 @@ class CitcomModel:
         return s, history
 
 
-def state_from_numpy(model: CitcomModel, arrays: Mapping) -> State:
+def state_from_numpy(model, arrays: Mapping) -> State:
     """The port's State from a State's fields as numpy arrays (T, Tdot, V,
     P, time, dt, step), e.g. the reference model's, in the model's dtype
-    and on its device."""
+    and on its device. `model` is a CitcomModel or a FullSphereModel
+    (both hold the same State)."""
     def t(name):
         return torch.tensor(np.asarray(arrays[name]), dtype=model.dtype,
                             device=model.device)

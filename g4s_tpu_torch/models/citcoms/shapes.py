@@ -1,6 +1,6 @@
 """Shape functions, quadrature and strain-displacement tensors (the port's
-own copy of g4s_tpu/models/citcoms/shapes.py, numpy only; the general
-isoparametric geometry of the full-sphere caps comes with that slice).
+own copy of g4s_tpu/models/citcoms/shapes.py, numpy only, with the general
+isoparametric geometry of the full-sphere caps).
 
 Host-side precompute (numpy, f64) of everything the reference derives in
 Size_does_matter.c (jacobians/GDA), construct_c3x3matrix_el (the node-frame
@@ -100,6 +100,9 @@ class FEMGeometry:
     B: np.ndarray        # (nel, 8g, 6, 8a, 3i) strain-displacement
     G: np.ndarray        # (nel, 8a, 3i) element gradient operator (get_elt_g)
     volume: np.ndarray   # (nel,)
+    gradN_phys: np.ndarray = None  # (nel, 8g, 3, 8a) physical gradient rows
+                                   # ((1/r)d/dth, 1/(r sin th)d/dfi, d/dr);
+                                   # filled by build_geometry_general
 
 
 def _cc_ccx(th_g, fi_g, th_n, fi_n):
@@ -205,3 +208,56 @@ def _build_ba(N, gnx, cc, ccx, rtf):
     B = np.stack([b1, b2, b3, b4, b5, b6], axis=2)  # (nel, ng, 6, 3n, 8a)
     return B.transpose(0, 1, 2, 4, 3)               # -> (..., 8a, 3n)
 
+
+def build_geometry_general(sx: np.ndarray, ien: np.ndarray) -> FEMGeometry:
+    """Isoparametric geometry for NON-tensor meshes (the full-sphere caps).
+
+    Unlike build_geometry (which exploits the regional mesh's boxes in
+    (theta, fi, r)), this computes the full 3x3 jacobian d(theta,fi,r)/dxi
+    per gauss point — the general path of the reference's
+    get_global_shape_fn (Size_does_matter.c). The strain tensors (cc/ccx/B)
+    and the element gradient operator are the same spherical formulas.
+    """
+    coords = sx[ien].copy()                     # (nel, 8, 3)
+    # unwrap fi within each element (seam elements straddle 0/2pi)
+    f0 = coords[:, 0:1, 1]
+    coords[:, :, 1] = f0 + np.mod(coords[:, :, 1] - f0 + np.pi,
+                                  2 * np.pi) - np.pi
+
+    N = shape_n(_GAUSS)
+    dN = shape_dn(_GAUSS)                        # (8a, 8g, 3xi)
+    N_p = shape_n(_PPOINT)
+    dN_p = shape_dn(_PPOINT)
+
+    def geom_at(dNq):
+        # J[e,g,xi,d] = sum_a dN[a,g,xi] coords[e,a,d]; the gradient in
+        # y = (theta, fi, r): d/dy_d = sum_xi dN/dxi * Jinv[e,g,xi,d]
+        J = np.einsum("agx,ead->egxd", dNq, coords)
+        gnx = np.einsum("agx,egxd->eagd", dNq, np.linalg.inv(J))
+        return np.abs(np.linalg.det(J)), gnx
+
+    detJ, gnx = geom_at(dN)
+    detJ_p, gnx_p = geom_at(dN_p)
+
+    rtf = np.einsum("ag,ead->egd", N, coords)
+    rtf_p = np.einsum("ag,ead->egd", N_p, coords)
+    gda = detJ * rtf[:, :, 2] ** 2 * np.sin(rtf[:, :, 0])
+    gda_p = detJ_p * rtf_p[:, :, 2] ** 2 * np.sin(rtf_p[:, :, 0])
+
+    th_n, fi_n = coords[:, :, 0], coords[:, :, 1]
+    cc, ccx = _cc_ccx(rtf[:, :, 0], rtf[:, :, 1], th_n, fi_n)
+    cc_p, ccx_p = _cc_ccx(rtf_p[:, :, 0], rtf_p[:, :, 1], th_n, fi_n)
+
+    B = _build_ba(N, gnx, cc, ccx, rtf)
+    B_ppt = _build_ba(N_p, gnx_p, cc_p, ccx_p, rtf_p)
+    divB = B_ppt[:, 0, 0] + B_ppt[:, 0, 1] + B_ppt[:, 0, 2]
+    G = -_PWEIGHT[0] * gda_p[:, 0, None, None] * divB
+    volume = (gda * _GWEIGHT[None, :]).sum(axis=1)
+    ra = 1.0 / rtf[:, :, 2]
+    isi = 1.0 / np.sin(rtf[:, :, 0])
+    grad = np.stack([
+        gnx[:, :, :, 0].transpose(0, 2, 1) * ra[:, :, None],
+        gnx[:, :, :, 1].transpose(0, 2, 1) * (ra * isi)[:, :, None],
+        gnx[:, :, :, 2].transpose(0, 2, 1)], axis=2)
+    return FEMGeometry(N, N_p, _GWEIGHT, rtf, gda, gda_p, cc, B, G, volume,
+                       grad)

@@ -51,12 +51,16 @@ def viscosity_at_vpts(cfg: CitcomConfig, mat, T_nodes, ien, N,
     dt, dev = T_nodes.dtype, T_nodes.device
 
     def per_mat(vals):
-        # config constants adopt the state dtype so the f32 path stays f32;
-        # a material past the vector's end takes its last entry, as the
-        # reference's clamping gather does (a CitcomConfig built directly
-        # can hold fewer entries than num_mat)
-        return torch.tensor(vals, dtype=dt, device=dev)[
-            mat.clamp(max=len(vals) - 1)]
+        # config constants adopt the state dtype so the f32 path stays f32,
+        # written on the device by fills (a tensor made from the list on
+        # the host would be a copy that waits for the device); a material
+        # past the vector's end takes its last entry, as the reference's
+        # clamping gather does (a CitcomConfig built directly can hold
+        # fewer entries than num_mat)
+        per = torch.empty(len(vals), dtype=dt, device=dev)
+        for i, v in enumerate(vals):
+            per[i:i + 1].fill_(float(v))
+        return per[mat.clamp(max=len(vals) - 1)]
 
     n0 = per_mat(cfg.visc0)                                 # (nel,)
     if not cfg.TDEPV:

@@ -362,6 +362,37 @@ def test_cv_reactor_rhs_and_jacobian_match(mechs, key):
         assert _rel(jac_p(0.0, _t(y)), jac_j(0.0, jnp.asarray(y))) <= 1e-11
 
 
+def test_jacobian_after_a_first_rhs_call_matches(files):
+    """A reactor whose first use is its RHS, then its jacfwd Jacobian. The
+    RHS takes dU/dT and dU/dc by torch.func.grad, and the mechanism's
+    tensors are cached at first use: they must be made outside that
+    transform (a tensor made inside one is wrapped at its level, and the
+    cached wrapper escaped into the Jacobian, which then failed an
+    internal assert, or, on the card, ran other kernels after other
+    histories). The Jacobian is the reference's within 1e-11 and equal bit
+    for bit to that of a reactor whose first use is the Jacobian."""
+    from torch._C._functorch import is_functorch_wrapped_tensor
+
+    def fresh():
+        return P.IdealGasConstVolumeReactor(
+            P.load_mechanism(files["small"], "nDodecane_RK"), real_gas=True,
+            device=CPU)
+
+    staged = fresh()
+    y = staged.initial_state(1000.0, 40 * 101325.0,
+                             P.stoich_mixture(staged.mech))
+    pr = fresh()
+    pr.rhs(0.0, y)
+    assert not any(is_functorch_wrapped_tensor(t)
+                   for t in pr.mech._tensor_cache.values())
+    jac = torch.func.jacfwd(pr.rhs, argnums=1)(0.0, y)
+    assert torch.equal(jac, torch.func.jacfwd(fresh().rhs, argnums=1)(0.0, y))
+    jr = J.IdealGasConstVolumeReactor(
+        J.load_mechanism(files["small"], "nDodecane_RK"), real_gas=True)
+    assert _rel(jac, jax.jit(jax.jacfwd(jr.rhs, argnums=1))(
+        0.0, jnp.asarray(_np(y)))) <= 1e-11
+
+
 def test_cp_reactor_rhs_matches(mechs):
     jm, pm = mechs["small_ig"]
     jr = J.IdealGasConstPressureReactor(jm)

@@ -537,3 +537,82 @@ def test_project_down_on_cuda_is_repeatable(cuda):
     cpu = multigrid.Interp(*(x.cpu() if isinstance(x, torch.Tensor) else x
                              for x in interp))
     assert torch.equal(a.cpu(), multigrid.project_down(cpu, r.cpu()))
+
+
+def test_full_sphere_step_on_cuda_matches_cpu(cuda):
+    """The full sphere at 5x5x4 per cap (the CPU parity tests' mesh and
+    blob): the initial solve and one f64 step on the card against the same
+    on the CPU at the parity tests' fixed cap (1 Uzawa x 20 CG iterations,
+    before the free-slip nullspace amplifies rounding), with equal counts,
+    within 1e-10; the net-rotation removal and the step wait for the
+    device only at the solver loops' counted reads."""
+    import dataclasses
+    import warnings
+    from g4s_tpu_torch.models.citcoms import (CitcomConfig, FullSphereModel,
+                                              solvers)
+    cfg = CitcomConfig(nodex=5, nodey=5, nodez=4, radius_inner=0.55,
+                       radius_outer=1.0, rayleigh=1e5, num_mat=1,
+                       accuracy=0.0, piterations=1, vlowstep=20)
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        m = FullSphereModel(cfg, device=dev)
+        s = m.init_state()
+        blob = np.exp(-np.sum((m._xyz - np.array([0.6, 0.3, 0.2])) ** 2,
+                              axis=1) / 0.05)
+        s = dataclasses.replace(s, T=torch.from_numpy(np.clip(
+            s.T.cpu().numpy() + 0.3 * blob, 0, 1)).to(dev))
+        s, mon = m.initial_solve(s)
+        waits = None
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                m.remove_net_rotation(s.V)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    solvers.HOST_SYNCS = 0
+                    m.step(s)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            waits = sum("synchroniz" in str(w.message) for w in caught)
+            assert waits == solvers.HOST_SYNCS > 0
+        s1, d = m.step(s)
+        runs.append((s1, (mon.outer_iterations, mon.inner_iterations,
+                          d.uzawa_iterations, d.inner_iterations)))
+    (sg, cg), (sc, cc) = runs
+    assert sg.V.is_cuda and cg == cc == (1, 40, 1, 40)
+    for name in ("T", "V", "P", "dt"):
+        g, c = getattr(sg, name).cpu(), getattr(sc, name)
+        assert (g - c).abs().max() <= 1e-10 * c.abs().max(), name
+
+
+def test_sorted_segment_sum_full_sphere_plans(cuda):
+    """The full sphere's sorted sums through its own int32 plans at 9x9x5
+    per cap: the layer sums (nno rows into nodez layers, runs of 770) and
+    the assembly scatter (nel*8 rows, runs of 1-8), bitwise equal to the
+    host CPU's in-order sums and between two calls."""
+    from g4s_tpu_torch.models.citcoms import CitcomConfig, FullSphereModel
+    cfg = CitcomConfig(nodex=9, nodey=9, nodez=5, radius_inner=0.55,
+                       radius_outer=1.0, rayleigh=1e5, num_mat=1)
+    rng = np.random.default_rng(13)
+    for dtype in (torch.float64, torch.float32):
+        m = FullSphereModel(cfg, dtype=dtype, device=cuda)
+        nel, nno = m.mesh.nel, m.mesh.nno
+        cases = [(torch.from_numpy(rng.standard_normal(nno)),
+                  m._layer_sorted, m._layer_order, cfg.nodez),
+                 (torch.from_numpy(rng.standard_normal((nel * 8, 3))),
+                  m.plan.seg_ids, m.plan.order, nno)]
+        for data, ids, order, num in cases:
+            assert ids.dtype == order.dtype == torch.int32
+            x = data.to(cuda, dtype)
+            before = segment.LAUNCHES
+            a = segment.sorted_segment_sum(x, ids, num, order=order)
+            b = segment.sorted_segment_sum(x, ids, num, order=order)
+            assert segment.LAUNCHES == before + 2
+            want = segment._sorted_segment_sum_plain(
+                data.to(dtype), ids.cpu(), num, order=order.cpu())
+            assert torch.equal(a, b) and torch.equal(a.cpu(), want)

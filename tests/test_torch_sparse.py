@@ -78,6 +78,13 @@ def test_package_imports_no_jax():
             "g4s_tpu_torch.models.citcoms.observables, "
             "g4s_tpu_torch.models.citcoms.output, "
             "g4s_tpu_torch.models.citcoms.vtk, "
+            "g4s_tpu_torch.models.citcoms.full_mesh, "
+            "g4s_tpu_torch.models.citcoms.full_driver, "
+            "g4s_tpu_torch.models.citcoms.full_tracers, "
+            "g4s_tpu_torch.models.citcoms.exchanger, "
+            "g4s_tpu_torch.models.citcoms.netcdf3, "
+            "g4s_tpu_torch.models.citcoms.ggrd, "
+            "g4s_tpu_torch.models.citcoms.mineral_physics, "
             "g4s_tpu_torch.drivers.citcoms_regional; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'g4s_tpu.')) or m == 'g4s_tpu'); "
