@@ -180,7 +180,31 @@ Run from the root of a checkout: `python3 chip_smoke.py`. It
      kernel at the full sphere's assembly scatter and layer sums, f64 and
      f32, held and timed as in phase 9, its launches an entry of their
      own.
-
+ 16. the rest of DeePMD on phase 10's frame, random weights from seeded
+     CPU generators: se_atten, se_a_ebd, hybrid, loc_frame and se_a_mask
+     at WATER_SPEC's widths and se_t at DeePMD-kit's examples/water/se_e3
+     widths (rcut 5.8, sel 40/80, embedding 2-4-8), each in f64 on the
+     card against the host CPU within 1e-10 (E/F/W, DeepPot through a
+     frozen file, a batch of 8 against 8 single calls; se_a_mask also as
+     a finite cluster with its last 16 atoms virtual), then its f32 eval
+     timed as phase 10's; one f64 Trainer step of se_atten, card against
+     host CPU within 1e-10 on the loss and every leaf, and its f32 step
+     timed; env_mat_celllist against env_mat at the frame tiled 2x2x2
+     (1,536 atoms: R within 1e-12, neighbor sets equal, and against the
+     host CPU), refusing the 192-atom box (2 cells per side), and both
+     timed in f32 with their peak memory at 4x4x4 (12,288 atoms);
+     atomic_descriptor_ef within 1e-10; DPLR (examples/water/dplr's
+     charges -8/0 on the centroids, 6/1 on the atoms, ewald_h 1.0,
+     beta 0.4: a 14^3 grid) within 1e-10, ewald_recp against a host loop
+     over the k vectors; 10 i-PI exchanges with an in-process server over
+     a socket pair and ipi.main() over an abstract unix socket, decoded
+     against DeepPot.eval within 1e-10; calc_ase_free likewise; NVNMD at
+     its default widths (rcut 6, sel 46/92): CNN E/F within 1e-10, QNN
+     and mapped E/F within 4 quanta (how many outputs differ printed),
+     build_map's tables within 1e-10, wrap_model -> load_wrapped bitwise,
+     and train_two_stage's 3 + 3 losses within 1e-8. No Pallas kernel
+     lies on this path in the reference, so no hand kernel does here
+     (launch counts printed, 0).
 Device times are medians per call between back-to-back calls queued
 behind a device sleep (g4s_tpu_torch.obs.timings.device_ms); "cold" times
 flush L2 before each call, outside its event pair. Each phase
@@ -289,6 +313,13 @@ CITCOMS_FULL_SPREAD_CAP = dict(accuracy=0.0, piterations=3, vlowstep=60)
 CITCOMS_FULL_SPREAD_FACTOR = 100.0
 CITCOMS_FULL_F32_STEPS = 5
 CITCOMS_FULL_TRACER_STEPS = 3
+# the rest of DeePMD (phase 16): the water frame (atoms, box side), the cell
+# list's tilings of it (checked, timed), i-PI exchanges timed, NVNMD's
+# CNN + QNN training steps
+DEEPMD_TAIL_FRAME = (192, 12.444661)
+DEEPMD_TAIL_TILES = (2, 4)
+DEEPMD_TAIL_IPI_EXCHANGES = 10
+DEEPMD_TAIL_NVNMD_STEPS = 3
 
 
 def _say(phase: str, **kw) -> None:
@@ -1321,6 +1352,587 @@ def _deepmd_water(dev) -> None:
          bound_by=bound[1],
          hand_kernel_launches=sum(mod.LAUNCHES for mod in launch_mods))
 
+
+
+def _ewald_recp_loop(pos, q, box, beta: float, spacing: float):
+    """Host numpy reference of the reciprocal-space Ewald energy and forces
+    (ewald.cc's formula), a Python loop over the k vectors, each a sum over
+    the charges: E = C/(2 pi V) sum_m w(m) |S(m)|^2, F_j = -dE/dr_j."""
+    import numpy as np
+    c_conv = 14.39964535475696995031
+    kk = []
+    for d in range(3):
+        ll = float(np.sqrt((box[d] ** 2).sum()))
+        k = int(ll / spacing)
+        k += k * spacing < ll
+        kk.append(k + k % 2)
+    rec = np.linalg.inv(box)
+    frac = pos @ rec
+    vol = abs(np.linalg.det(box))
+    e, f = 0.0, np.zeros_like(pos)
+    for mx in range(-kk[0] // 2, kk[0] // 2 + 1):
+        for my in range(-kk[1] // 2, kk[1] // 2 + 1):
+            for mz in range(-kk[2] // 2, kk[2] // 2 + 1):
+                if mx == my == mz == 0:
+                    continue
+                m = np.array([mx, my, mz], np.float64)
+                theta = 2.0 * np.pi * (frac @ m)
+                cos, sin = np.cos(theta), np.sin(theta)
+                sr, si = q @ cos, q @ sin
+                b = rec @ m                     # the cartesian k / (2 pi)
+                nm2 = b @ b
+                w = np.exp(-np.pi ** 2 * nm2 / beta ** 2) / nm2
+                e += w * (sr * sr + si * si)
+                f -= (2.0 * w * q * (si * cos - sr * sin))[:, None] * b
+    return e * c_conv / (2.0 * np.pi * vol), f * c_conv / vol
+
+
+def _deepmd_tail(dev) -> None:
+    """Phase 16: the rest of DeePMD at the water model's width on
+    __graft_entry__.py's 192-atom frame (phase 10's), random weights from
+    seeded CPU generators. f64 checks, the card against the host CPU, each
+    relative to the largest magnitude of its reference; f32 timings as
+    phase 10 prints them."""
+    import itertools
+    import socket
+    import statistics
+    import struct
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from g4s_tpu_torch.ckpt import tree_leaves
+    from g4s_tpu_torch.models.deepmd import (WATER_SPEC, DeepPot,
+                                             energy_force_virial, freeze,
+                                             init_params, total_energy)
+    from g4s_tpu_torch.models.deepmd import calculator, dplr, ipi, nvnmd
+    from g4s_tpu_torch.models.deepmd.descriptor import (
+        DescriptorSpec, atomic_descriptor_ef, compute_stats, env_mat,
+        env_mat_celllist, env_mat_nopbc)
+    from g4s_tpu_torch.models.deepmd.fit_tensor import (atomic_dipole,
+                                                        init_tensor_fit)
+    from g4s_tpu_torch.models.deepmd.model import ModelSpec, params_to
+    from g4s_tpu_torch.models.deepmd.train import (LossConfig, LRConfig,
+                                                   Trainer, batch_to)
+    from g4s_tpu_torch.obs.timings import device_activities, device_ms
+    from g4s_tpu_torch.ops import bwell_spmv, route, segment, wsell_spmv
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    f32, f64 = torch.float32, torch.float64
+    launch_mods = (route, wsell_spmv, bwell_spmv, segment)
+    for mod in launch_mods:
+        mod.LAUNCHES = 0
+    n, L = DEEPMD_TAIL_FRAME
+    n_o = n // 3
+    types_np = np.concatenate([np.zeros(n_o, np.int64),
+                               np.ones(n - n_o, np.int64)])
+    coord_np = np.random.default_rng(0).uniform(0, L, size=(n, 3))
+    box_np = np.eye(3) * L
+    nb = 8
+    cb_np = coord_np[None] + np.random.default_rng(1).normal(
+        scale=0.05, size=(nb, n, 3))
+    bb_np = np.repeat(box_np[None], nb, axis=0)
+    tmp = tempfile.TemporaryDirectory()
+
+    def on(device, dtype=f64):
+        return (torch.as_tensor(coord_np, dtype=dtype, device=device),
+                torch.as_tensor(box_np, dtype=dtype, device=device),
+                torch.as_tensor(types_np, device=device))
+
+    cg, bg, tg = on(dev)
+    ch, bh, th = on(cpu)
+
+    def rel(got, want) -> float:
+        return _rel_err(got.detach().cpu().double(),
+                        want.detach().cpu().double())
+
+    def errs(got, want, keys="EFW") -> dict:
+        return {k: rel(g, w) for k, g, w in zip(keys, got, want)}
+
+    def fmt(d: dict) -> str:
+        return json.dumps({k: f"{v:.3g}" for k, v in d.items()}).replace(
+            " ", "")
+
+    def f32_timing(fn) -> dict:
+        # as phase 10: one call per device timing, the wall time of
+        # synchronized calls, the kernels of one profiled call
+        dms = statistics.median(device_ms(fn, device=dev, reps=1)
+                                for _ in range(5))
+        wall = _wall_ms(fn, reps=10)
+        acts = device_activities(fn)
+        busy = sum(us for _, us in acts) / 1e3
+        return dict(device_ms=f"{dms:.4f}", host_wall_ms=f"{wall:.4f}",
+                    device_kernels=len(acts), device_busy_ms=f"{busy:.4f}",
+                    device_idle_share=f"{max(0.0, 1 - busy / wall):.3f}")
+
+    # ---- 1. the six descriptors ----
+    se_e3 = ModelSpec(DescriptorSpec(5.8, 0.5, (40, 80), 2), (2, 4, 8), 16,
+                      (240, 240, 240), descriptor_type="se_t")
+    specs = {t: WATER_SPEC._replace(descriptor_type=t)
+             for t in ("se_atten", "se_a_ebd", "hybrid", "loc_frame",
+                       "se_a_mask")}
+    specs["se_t"] = se_e3
+    frozen_atten = None
+    for i, (name, spec) in enumerate(specs.items()):
+        params = init_params(torch.Generator().manual_seed(100 + i), spec)
+        if name != "loc_frame":
+            # davg/dstd from the frame, as dp train computes them
+            R, _ = (env_mat_nopbc(ch, th, spec.descriptor)
+                    if name == "se_a_mask"
+                    else env_mat(ch, bh, th, spec.descriptor))
+            davg, dstd = compute_stats([R], [types_np], 2,
+                                       spec.descriptor.nnei)
+            params["stats"]["davg"] = torch.as_tensor(davg)
+            params["stats"]["dstd"] = torch.as_tensor(dstd)
+        pg = params_to(params, device=dev)
+        t0 = time.perf_counter()
+        want = energy_force_virial(params, spec, ch, bh, th)
+        host_s = time.perf_counter() - t0
+        got = energy_force_virial(pg, spec, cg, bg, tg)
+        e_err = errs(got, want)
+        _check(max(e_err.values()) <= DEEPMD_F64_TOL,
+               f"{name} E/F/W f64, card against host CPU: {e_err}")
+        path = os.path.join(tmp.name, f"{name}.npz")
+        freeze(params, spec, path, type_map=["O", "H"])
+        pot = DeepPot(path, device=dev)
+        fr_err = errs(pot.eval(coord_np, box_np, types_np), got)
+        _check(max(fr_err.values()) <= DEEPMD_F64_TOL,
+               f"{name}: DeepPot of its frozen file against "
+               f"energy_force_virial: {fr_err}")
+        batch = pot.eval(cb_np, bb_np, types_np)
+        b_err = max(max(errs([b[k] for b in batch],
+                             pot.eval(cb_np[k], box_np, types_np)).values())
+                    for k in range(nb))
+        _check(b_err <= DEEPMD_F64_TOL,
+               f"{name}: DeepPot batch of {nb} against {nb} single calls: "
+               f"{b_err}")
+        extra = {}
+        if name == "se_a_mask":
+            # the frame as a finite cluster, its last 16 atoms virtual
+            mask = np.arange(n) >= 0
+            mask[-16:] = False
+            res = []
+            for p_, c_, t_ in ((pg, cg, tg), (params, ch, th)):
+                x = c_.clone().requires_grad_(True)
+                e = total_energy(p_, spec, x, None, t_,
+                                 atom_mask=torch.as_tensor(mask,
+                                                           device=x.device))
+                (g,) = torch.autograd.grad(e, x)
+                res.append((e.detach(), -g))
+            m_err = errs(res[0], res[1], "EF")
+            _check(max(m_err.values()) <= DEEPMD_F64_TOL
+                   and float(res[0][1][-16:].abs().max()) == 0.0,
+                   f"se_a_mask with 16 virtual atoms, card against host "
+                   f"CPU: {m_err}; the virtual atoms' largest force "
+                   f"{float(res[0][1][-16:].abs().max())}")
+            extra = dict(masked_rel_err_card_vs_host=fmt(m_err),
+                         masked_e=f"{float(res[0][0]):.10g}",
+                         virtual_atoms=16)
+        if name == "se_atten":
+            frozen_atten = (path, pot, params)
+        p32 = params_to(params, device=dev, dtype=f32)
+        c32, b32, t32 = on(dev, f32)
+        e32 = energy_force_virial(p32, spec, c32, b32, t32)
+        err32 = errs(e32, want)
+        _check(max(err32.values()) <= DEEPMD_F32_TOL,
+               f"{name} E/F/W f32 on the card against f64: {err32}")
+        timing = f32_timing(lambda: energy_force_virial(p32, spec, c32, b32,
+                                                        t32))
+        _say(f"16-deepmd-{name}", atoms=n,
+             widths="se_e3" if name == "se_t" else "WATER_SPEC",
+             e=f"{float(got[0]):.10g}", rel_err_card_vs_host=fmt(e_err),
+             frozen_deeppot_rel_err=f"{max(fr_err.values()):.3g}",
+             batch8_vs_single_rel_err=f"{b_err:.3g}", tol=DEEPMD_F64_TOL,
+             host_cpu_eval_s=f"{host_s:.3f}", **extra,
+             f32_rel_err_vs_f64=fmt(err32), **{f"f32_{k}": v for k, v in
+                                                timing.items()})
+        del pg, p32, pot, batch
+
+    # ---- the f64 Trainer step of se_atten, card against host CPU ----
+    spec = specs["se_atten"]
+    params = frozen_atten[2]
+    r = np.random.default_rng(12)
+    raw = dict(coord=coord_np[None], box=box_np[None],
+               energy=r.normal(size=1), force=r.normal(size=(1, n, 3)),
+               types=types_np)
+    tr = Trainer(spec, LossConfig(), LRConfig())
+    runs = {}
+    for device in (dev, cpu):
+        p = params_to(params, device=device)
+        t0 = time.perf_counter()
+        p, _, loss, _ = tr._update(p, tr.init(p),
+                                   batch_to(raw, tree_leaves(p)[0]), 0)
+        runs[device.type] = (p, float(loss), time.perf_counter() - t0)
+    (pgt, lg, _), (pct, lc, host_s) = runs[dev.type], runs["cpu"]
+    loss_err = abs(lg - lc) / abs(lc)
+    leaf_err = max(_rel_err(g.cpu(), c) for g, c in
+                   zip(tree_leaves(pgt), tree_leaves(pct)))
+    _check(loss_err <= DEEPMD_TRAIN_F64_TOL
+           and leaf_err <= DEEPMD_TRAIN_F64_TOL,
+           f"se_atten Trainer step f64, card against host CPU: loss "
+           f"{loss_err}, leaves {leaf_err}")
+    p32 = params_to(params, device=dev, dtype=f32)
+    b32 = batch_to(raw, tree_leaves(p32)[0])
+    state = tr.init(p32)
+    step_ms = []
+    for step in range(8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p32, state, loss, _ = tr._update(p32, state, b32, step)
+        torch.cuda.synchronize()
+        if step >= 3:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    _check(bool(torch.isfinite(loss)), "se_atten f32 training loss not "
+                                       "finite")
+    acts = device_activities(lambda: tr._update(p32, state, b32, 8))
+    busy = sum(us for _, us in acts) / 1e3
+    wall = statistics.median(step_ms)
+    _say("16-deepmd-se_atten-train", frames_per_step=1,
+         loss_f64=f"{lg:.10g}", loss_rel_err=f"{loss_err:.3g}",
+         leaf_rel_err=f"{leaf_err:.3g}", leaves=len(tree_leaves(pgt)),
+         tol=DEEPMD_TRAIN_F64_TOL, host_cpu_step_s=f"{host_s:.3f}",
+         f32_ms_per_step=f"{wall:.4f}", f32_device_kernels=len(acts),
+         f32_device_busy_ms=f"{busy:.4f}",
+         f32_device_idle_share=f"{max(0.0, 1 - busy / wall):.3f}")
+    del runs, pgt, pct, p32, state
+
+    # ---- 2. the cell list ----
+    dspec = WATER_SPEC.descriptor
+
+    def tiled(k):
+        shifts = np.array(list(itertools.product(range(k), repeat=3)),
+                          np.float64) * L
+        c = (coord_np[None] + shifts[:, None]).reshape(-1, 3)
+        return c, np.eye(3) * L * k, np.tile(types_np, k ** 3)
+
+    small, large = DEEPMD_TAIL_TILES
+    c_np, bx_np, ty_np = tiled(small)
+    res = {}
+    for device in (dev, cpu):
+        c_, b_, t_ = (torch.as_tensor(x, device=device)
+                      for x in (c_np, bx_np, ty_np))
+        res[device.type] = (env_mat_celllist(c_, b_, t_, dspec),
+                            env_mat(c_, b_, t_, dspec))
+    (Rc, nlc), (Ra, nla) = res[dev.type]
+    (Rch, nlch), _ = res["cpu"]
+
+    def same_sets(a, b) -> bool:
+        return torch.equal(torch.sort(a, dim=-1)[0].cpu(),
+                           torch.sort(b, dim=-1)[0].cpu())
+    cl_err = rel(Rc, Ra)
+    cl_host_err = rel(Rc, Rch)
+    _check(cl_err <= 1e-12 and same_sets(nlc, nla),
+           f"env_mat_celllist against env_mat on the card at "
+           f"{len(c_np)} atoms: R {cl_err}, neighbor sets equal "
+           f"{same_sets(nlc, nla)}")
+    _check(cl_host_err <= 1e-12 and same_sets(nlc, nlch),
+           f"env_mat_celllist, card against host CPU: R {cl_host_err}, "
+           f"neighbor sets equal {same_sets(nlc, nlch)}")
+    try:
+        env_mat_celllist(cg, bg, tg, dspec)
+    except ValueError:
+        refused = True
+    else:
+        refused = False
+    _check(refused, f"env_mat_celllist took the {n}-atom box "
+                    f"({int(L // dspec.rcut)} cells per side)")
+    del res, Rc, Ra, Rch, nlc, nla, nlch
+    c_np, bx_np, ty_np = tiled(large)
+    c_, b_, t_ = (torch.as_tensor(c_np, dtype=f32, device=dev),
+                  torch.as_tensor(bx_np, dtype=f32, device=dev),
+                  torch.as_tensor(ty_np, device=dev))
+    big = {}
+    for fname, fn in (("celllist", lambda: env_mat_celllist(c_, b_, t_,
+                                                            dspec)),
+                      ("all_pairs", lambda: env_mat(c_, b_, t_, dspec))):
+        fn()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        big[fname] = (_wall_ms(fn, reps=5), peak)
+    _say("16-deepmd-celllist", atoms_checked=len(tiled(small)[0]),
+         cells_per_side_checked=int(L * small // dspec.rcut),
+         r_rel_err_vs_env_mat=f"{cl_err:.3g}",
+         r_rel_err_card_vs_host=f"{cl_host_err:.3g}",
+         neighbor_sets_equal=True, refused_at_atoms=n,
+         atoms_timed=len(c_np),
+         cells_per_side_timed=int(L * large // dspec.rcut),
+         f32_celllist_wall_ms=f"{big['celllist'][0]:.4f}",
+         f32_celllist_peak_mib=f"{big['celllist'][1]:.1f}",
+         f32_all_pairs_wall_ms=f"{big['all_pairs'][0]:.4f}",
+         f32_all_pairs_peak_mib=f"{big['all_pairs'][1]:.1f}")
+    del c_, b_, t_
+
+    # ---- 3. se_a_ef ----
+    pp_ = init_params(torch.Generator().manual_seed(21), WATER_SPEC)
+    pv_ = init_params(torch.Generator().manual_seed(22), WATER_SPEC)
+    ef = np.random.default_rng(5).normal(size=(n, 3))
+    Ds = [atomic_descriptor_ef(params_to(pp_, device=d),
+                               params_to(pv_, device=d), WATER_SPEC, c_, b_,
+                               t_, torch.as_tensor(ef, device=d))
+          for d, c_, b_, t_ in ((dev, cg, bg, tg), (cpu, ch, bh, th))]
+    ef_err = rel(Ds[0], Ds[1])
+    _check(ef_err <= DEEPMD_F64_TOL and Ds[0].shape == (n, 2 * 1600),
+           f"atomic_descriptor_ef, card against host CPU: {ef_err}, "
+           f"shape {tuple(Ds[0].shape)}")
+    _say("16-deepmd-se_a_ef", shape=list(Ds[0].shape),
+         rel_err_card_vs_host=f"{ef_err:.3g}", tol=DEEPMD_F64_TOL)
+    del Ds
+
+    # ---- 4. DPLR (examples/water/dplr's charges and Ewald settings) ----
+    dip = init_params(torch.Generator().manual_seed(31), WATER_SPEC)
+    nets = init_tensor_fit(torch.Generator().manual_seed(32), WATER_SPEC)
+    kw = dict(model_charge_map=[-8.0, 0.0], sys_charge_map=[6.0, 1.0],
+              ewald_h=1.0, ewald_beta=0.4)
+    mods = [dplr.DipoleChargeModifier(params_to(dip, device=d),
+                                      params_to(nets, device=d), WATER_SPEC,
+                                      **kw) for d in (dev, cpu)]
+    outs = [m.eval(coord_np, box_np, types_np) for m in mods]
+    dplr_err = errs(outs[0], outs[1])
+    _check(max(dplr_err.values()) <= DEEPMD_F64_TOL,
+           f"DipoleChargeModifier f64, card against host CPU: {dplr_err}")
+    kk = dplr.ewald_kgrid(box_np, kw["ewald_h"])
+    # the modifier's charge system: ions on the atoms, model charges on the
+    # predicted Wannier centroids
+    with torch.no_grad():
+        wc = (cg + atomic_dipole(mods[0].params, mods[0].nets, WATER_SPEC,
+                                 cg, bg, tg)).cpu().numpy()
+    pos = np.concatenate([coord_np, wc])
+    q = np.concatenate([np.asarray(kw["sys_charge_map"])[types_np],
+                        np.asarray(kw["model_charge_map"])[types_np]])
+    t0 = time.perf_counter()
+    e_loop, f_loop = _ewald_recp_loop(pos, q, box_np, kw["ewald_beta"],
+                                      kw["ewald_h"])
+    loop_s = time.perf_counter() - t0
+    e_k, f_k, _ = dplr.ewald_recp(pos, q, box_np, beta=kw["ewald_beta"],
+                                  spacing=kw["ewald_h"], device=dev)
+    ew_err = {"E": abs(float(e_k) - e_loop) / abs(e_loop),
+              "F": _rel_err(f_k.cpu(), f_loop)}
+    _check(max(ew_err.values()) <= DEEPMD_F64_TOL,
+           f"ewald_recp on the card against the host loop over k: "
+           f"{ew_err}")
+    dplr_ms = _wall_ms(lambda: mods[0].eval(coord_np, box_np, types_np),
+                       reps=5)
+    _say("16-deepmd-dplr", kgrid="x".join(str(int(k)) for k in kk),
+         k_vectors=int(np.prod(kk + 1) - 1),
+         de=f"{float(outs[0][0]):.10g}",
+         rel_err_card_vs_host=fmt(dplr_err),
+         ewald_recp_rel_err_vs_loop=fmt(ew_err), host_loop_s=f"{loop_s:.3f}",
+         tol=DEEPMD_F64_TOL, f64_ms_per_eval=f"{dplr_ms:.4f}")
+    del mods, outs
+
+    # ---- 5. i-PI, in process: the driver on one end of a socket pair ----
+    path, pot, _ = frozen_atten
+    names = ["O" if x == 0 else "H" for x in types_np]
+    nmap = {"O": 0, "H": 1}
+    cell = (box_np.T / ipi.CVT_LEN).astype("<f8")
+    posdata = (b"POSDATA".ljust(12) + cell.tobytes()
+               + np.linalg.inv(cell).astype("<f8").tobytes()
+               + struct.pack("<i", n)
+               + (coord_np / ipi.CVT_LEN).astype("<f8").tobytes())
+    reply_len = 12 + 8 + 4 + 24 * n + 72 + 4 + 7
+
+    def recvn(sock, k):
+        buf = b""
+        while len(buf) < k:
+            chunk = sock.recv(k - len(buf))
+            _check(bool(chunk), "i-PI driver closed the connection")
+            buf += chunk
+        return buf
+
+    def exchange(sock):
+        sock.sendall(b"STATUS".ljust(12))
+        _check(recvn(sock, 12).strip() == b"READY", "i-PI: not READY")
+        sock.sendall(posdata + b"STATUS".ljust(12))
+        _check(recvn(sock, 12).strip() == b"HAVEDATA", "i-PI: no HAVEDATA")
+        sock.sendall(b"GETFORCE".ljust(12))
+        msg = recvn(sock, reply_len)
+        _check(msg[:12].strip() == b"FORCEREADY"
+               and msg[-11:] == struct.pack("<i", 7) + b"nothing",
+               "i-PI: malformed FORCEREADY")
+        e = struct.unpack_from("<d", msg, 12)[0]
+        f = np.frombuffer(msg[24: 24 + 24 * n], "<f8").reshape(n, 3)
+        v = np.frombuffer(msg[24 + 24 * n: 96 + 24 * n], "<f8")
+        return e, f, v.reshape(3, 3)
+
+    drv = ipi.IPIDriver(pot, names, nmap)
+    srv, drv.sock = socket.socketpair()
+    th_drv = threading.Thread(target=drv.serve_forever, daemon=True)
+    th_drv.start()
+    got = exchange(srv)
+    t0 = time.perf_counter()
+    for _ in range(DEEPMD_TAIL_IPI_EXCHANGES):
+        got = exchange(srv)
+    ipi_ms = (time.perf_counter() - t0) / DEEPMD_TAIL_IPI_EXCHANGES * 1e3
+    srv.close()
+    th_drv.join(timeout=30)
+    _check(not th_drv.is_alive(), "i-PI driver did not stop")
+    we, wf, wv = pot.eval(ipi.wrap_coords(coord_np, box_np), box_np,
+                          types_np)
+    want = (float(we) / ipi.CVT_ENER, wf.cpu().numpy() / ipi.CVT_F,
+            wv.cpu().numpy().T / ipi.CVT_ENER)
+    ipi_err = {k: _rel_err(g, w) for k, g, w in zip("EFV", got, want)}
+    _check(max(ipi_err.values()) <= DEEPMD_F64_TOL,
+           f"i-PI decoded E/F/V against DeepPot.eval: {ipi_err}")
+    # main() with a json config, on an abstract unix socket
+    xyz = os.path.join(tmp.name, "frame.xyz")
+    with open(xyz, "w") as fh:
+        fh.write(f"{n}\nwater\n" + "".join(
+            f"{a} {x:.8f} {y:.8f} {z:.8f}\n"
+            for a, (x, y, z) in zip(names, coord_np)))
+    prefix = f"\0g4s_ipi_{os.getpid()}_"
+    cfg = os.path.join(tmp.name, "ipi.json")
+    with open(cfg, "w") as fh:
+        json.dump(dict(graph_file=path, coord_file=xyz, atom_type=nmap,
+                        host="p16", use_unix=True, unix_prefix=prefix), fh)
+    listener = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    listener.bind(prefix + "p16")
+    listener.listen(1)
+    main_out = {}
+
+    def serve_main():
+        conn, _ = listener.accept()
+        main_out["efv"] = exchange(conn)
+        conn.sendall(b"EXIT".ljust(12))
+        conn.close()
+    th_srv = threading.Thread(target=serve_main, daemon=True)
+    th_srv.start()
+    ipi.main([cfg, "--device", dev.type])
+    th_srv.join(timeout=30)
+    listener.close()
+    _check("efv" in main_out and not th_srv.is_alive(),
+           "i-PI main() made no exchange")
+    main_err = max(_rel_err(g, w) for g, w in zip(main_out["efv"], want))
+    _check(main_err <= DEEPMD_F64_TOL,
+           f"i-PI main() against DeepPot.eval: {main_err}")
+
+    # ---- 6. the calculator ----
+    out = calculator.calc_ase_free(path, coord_np, box_np, names, ["O", "H"],
+                                   device=dev)
+    ref = pot.eval(coord_np, box_np, types_np)
+    calc_err = {"E": abs(out["energy"] - float(ref[0])) / abs(float(ref[0])),
+                "F": _rel_err(out["forces"], ref[1].cpu()),
+                "W": _rel_err(out["virial"], ref[2].cpu())}
+    _check(max(calc_err.values()) <= DEEPMD_F64_TOL,
+           f"calc_ase_free against DeepPot: {calc_err}")
+    _say("16-deepmd-ipi-calculator", model="se_atten f64",
+         exchanges=DEEPMD_TAIL_IPI_EXCHANGES,
+         wall_ms_per_exchange=f"{ipi_ms:.4f}",
+         rel_err_vs_deeppot=fmt(ipi_err), main_unix_rel_err=f"{main_err:.3g}",
+         calc_ase_free_rel_err=fmt(calc_err), tol=DEEPMD_F64_TOL)
+
+    # ---- 7. NVNMD at its default widths ----
+    nspec = nvnmd.NvnmdSpec(DescriptorSpec(6.0, 0.5, (46, 92), 2))
+    npar = nvnmd.init_nvnmd_params(torch.Generator().manual_seed(41), nspec)
+    # per-type scalar stats of s and h over the frame's neighbors
+    u, _, valid = nvnmd._neighbor_u(ch, bh, th, nspec.descriptor)
+    s, h = nvnmd._s_h_of_u(u, nspec.descriptor)
+    of_type = [(th == t)[:, None] & valid for t in range(2)]
+    npar["stats"] = {"avg": torch.stack([s[m].mean() for m in of_type]),
+                     "std_s": torch.stack([s[m].std() for m in of_type]),
+                     "std_h": torch.stack([h[m].std() for m in of_type])}
+    quantum = 2.0 ** -nspec.nbit_data_fl
+    both = [(params_to(npar, device=d), c_, b_, t_)
+            for d, c_, b_, t_ in ((dev, cg, bg, tg), (cpu, ch, bh, th))]
+
+    def diff(a, b):
+        """(largest |a - b|, outputs that differ at all, outputs that differ
+        by half a quantum or more, outputs)."""
+        a = torch.cat([x.detach().cpu().reshape(-1) for x in a])
+        b = torch.cat([x.detach().cpu().reshape(-1) for x in b])
+        d = (a - b).abs()
+        return (float(d.max()), int((d > 0).sum()),
+                int((d >= quantum / 2).sum()), a.numel())
+    cnn = [nvnmd.nvnmd_energy_force(p_, nspec, c_, b_, t_, stage="cnn")
+           for p_, c_, b_, t_ in both]
+    cnn_err = errs(cnn[0], cnn[1], "EF")
+    _check(max(cnn_err.values()) <= DEEPMD_F64_TOL,
+           f"NVNMD CNN E/F, card against host CPU: {cnn_err}")
+    qnn = [nvnmd.nvnmd_energy_force(p_, nspec, c_, b_, t_, stage="qnn")
+           for p_, c_, b_, t_ in both]
+    q_abs, q_n, q_flip, n_out = diff(qnn[0], qnn[1])
+    _check(q_abs <= 4 * quantum, f"NVNMD QNN E/F, card against host CPU: "
+                                 f"{q_abs} > 4 quanta")
+    tabs = [nvnmd.build_map(p_, nspec) for p_, _, _, _ in both]
+
+    def scaled(tb):
+        cgc = tb.coef_g.cpu()
+        nf = int(tb.cfg_s2g[0, 4])
+        dx = torch.where(torch.arange(cgc.shape[1]) < nf,
+                         float(tb.cfg_s2g[0, 2]), float(tb.cfg_s2g[1, 2]))
+        c = cgc.reshape(cgc.shape[:2] + (-1, 4))
+        return c * dx[None, :, None, None] ** torch.arange(4)
+    tab_err = {"coef_s": rel(tabs[0].coef_s, tabs[1].coef_s),
+               "coef_h": rel(tabs[0].coef_h, tabs[1].coef_h),
+               "coef_g_ckdxk": rel(scaled(tabs[0]), scaled(tabs[1])),
+               "cfg_s2g": _rel_err(tabs[0].cfg_s2g, tabs[1].cfg_s2g)}
+    _check(max(tab_err.values()) <= DEEPMD_F64_TOL,
+           f"NVNMD build_map, card against host CPU: {tab_err}")
+    maps = [nvnmd.nvnmd_map_energy_force(p_, nspec, tb, c_, b_, t_)
+            for (p_, c_, b_, t_), tb in zip(both, tabs)]
+    m_abs, m_n, m_flip, _ = diff(maps[0], maps[1])
+    _check(m_abs <= 4 * quantum, f"NVNMD mapped E/F, card against host "
+                                 f"CPU: {m_abs} > 4 quanta")
+    wrapped = os.path.join(tmp.name, "model.nvnmd")
+    again = os.path.join(tmp.name, "again.nvnmd")
+    nvnmd.wrap_model(both[0][0], nspec, tabs[0], wrapped)
+    p2, s2, t2 = nvnmd.load_wrapped(wrapped, device=dev)
+    nvnmd.wrap_model(p2, s2, t2, again)
+    with np.load(wrapped) as z1, np.load(again) as z2:
+        same = sorted(z1.files) == sorted(z2.files) and all(
+            np.array_equal(z1[k], z2[k]) for k in z1.files)
+    e_a = nvnmd.nvnmd_map_energy(p2, s2, t2, cg, bg, tg)
+    e_b = nvnmd.nvnmd_map_energy(p2, s2, t2, cg, bg, tg)
+    _check(same and s2 == nspec and bool(torch.equal(e_a, e_b)),
+           "NVNMD wrap_model -> load_wrapped on the card: not bitwise")
+    # two-stage training, labels from a teacher evaluated on the host
+    teacher = nvnmd.init_nvnmd_params(torch.Generator().manual_seed(42),
+                                      nspec)
+    teacher["stats"] = {k: v.clone() for k, v in npar["stats"].items()}
+    e_t, f_t = nvnmd.nvnmd_energy_force(teacher, nspec, ch, bh, th)
+    losses, train_s = {}, {}
+    for p_, c_, b_, t_ in both:
+        d = c_.device
+        t0 = time.perf_counter()
+        _, lc_, lq_ = nvnmd.train_two_stage(
+            p_, nspec, [(c_, b_, t_, e_t.to(d), f_t.to(d))], lr=2e-4,
+            steps_cnn=DEEPMD_TAIL_NVNMD_STEPS,
+            steps_qnn=DEEPMD_TAIL_NVNMD_STEPS)
+        train_s[d.type] = time.perf_counter() - t0
+        losses[d.type] = np.array(lc_ + lq_)
+    tr_err = _rel_err(losses[dev.type], losses["cpu"])
+    _check(tr_err <= 1e-8, f"NVNMD train_two_stage losses, card against "
+                           f"host CPU: {tr_err}")
+    qnn_ms = _wall_ms(lambda: nvnmd.nvnmd_energy_force(
+        both[0][0], nspec, cg, bg, tg, stage="qnn"), reps=5)
+    map_ms = _wall_ms(lambda: nvnmd.nvnmd_map_energy_force(
+        both[0][0], nspec, tabs[0], cg, bg, tg), reps=5)
+    _say("16-deepmd-nvnmd", spec="NvnmdSpec defaults, rcut 6, sel 46/92",
+         cnn_rel_err_card_vs_host=fmt(cnn_err),
+         qnn_max_abs_diff_quanta=f"{q_abs / quantum:.3g}",
+         qnn_outputs_differing=f"{q_n}/{n_out}",
+         qnn_outputs_off_by_half_a_quantum=q_flip,
+         map_max_abs_diff_quanta=f"{m_abs / quantum:.3g}",
+         map_outputs_differing=f"{m_n}/{n_out}",
+         map_outputs_off_by_half_a_quantum=m_flip,
+         tables_rel_err_card_vs_host=fmt(tab_err), wrap_reload_bitwise=same,
+         train_steps=f"{DEEPMD_TAIL_NVNMD_STEPS}+{DEEPMD_TAIL_NVNMD_STEPS}",
+         train_losses=",".join(f"{x:.8g}" for x in losses[dev.type]),
+         train_loss_rel_err=f"{tr_err:.3g}",
+         train_s_card_host=f"{train_s[dev.type]:.2f}/{train_s['cpu']:.2f}",
+         f64_qnn_ms_per_eval=f"{qnn_ms:.4f}",
+         f64_map_ms_per_eval=f"{map_ms:.4f}")
+    tmp.cleanup()
+    _say("16-deepmd-tail", hand_kernel_launches=json.dumps(
+        {m.__name__.rsplit(".", 1)[-1]: m.LAUNCHES
+         for m in launch_mods}).replace(" ", ""),
+         seconds=f"{time.perf_counter() - t_phase:.1f}")
 
 
 def _deepmd_train_flops(spec, n_atoms: int, frames: int) -> int:
@@ -3359,6 +3971,10 @@ def main() -> int:
     for d, k in ((ms, "ms"), (plain_ms, "plain_ms"),
                  (library_ms, "library_ms"), (bound, "bound")):
         d["sorted_segment_sum_citcoms_full"] = full["segment_sum"][k]
+
+    laps.append((16, time.perf_counter()))
+    # ---- 16: the rest of DeePMD at the water model's width --------------
+    _deepmd_tail(dev)
 
     laps.append((None, time.perf_counter()))
     _say("phase-seconds", **{f"p{k}": f"{t1 - t0:.1f}" for (k, t0), (_, t1)

@@ -16,9 +16,9 @@ Forces and virials come from torch.autograd through this whole function,
 and training differentiates it twice (a force loss): every guard keeps the
 unselected branch finite, so second derivatives stay finite at padded
 slots too. `env_mat_nopbc` is the finite-system variant (no minimum
-image, optional real-atom mask). The cell-list variant (`env_mat_celllist`)
-and the field descriptor (`atomic_descriptor_ef`) are not ported yet
-(ROADMAP.md queue 1, item 6, "The rest of DeePMD").
+image, optional real-atom mask), `env_mat_celllist` the cell-list variant
+for large frames, and `atomic_descriptor_ef` the electric-field
+descriptor (se_a_ef).
 """
 
 from __future__ import annotations
@@ -156,6 +156,112 @@ def _env_sections(disp, types, spec: DescriptorSpec, *, neighbor_mask=None,
     R = torch.cat(R_secs, dim=-2)                        # (..., N, nnei, 4)
     nlist = torch.cat(nl_secs, dim=-1)
     return R, nlist
+
+
+def env_mat_celllist(coords, box, types, spec: DescriptorSpec, *,
+                     max_per_cell: int = 64):
+    """Cell-list variant of env_mat for one large frame (the role of the
+    reference's cell-list build, source/lib/src/neighbor_list.cc): the same
+    (R, nlist), up to the order of equidistant neighbors.
+
+    Atoms are binned into cells of side >= rcut, the cell counts taken from
+    the box on the host; each atom's candidates are the atoms of its 27
+    surrounding cells (max_per_cell slots per cell, padded), not all N.
+    Orthorhombic boxes only. Unlike the reference, which then counts an
+    atom two or three times or drops it, this raises ValueError where a
+    side holds fewer than 3 cells or a cell more than max_per_cell atoms.
+    The occupancy check reads one number back from the device per call.
+    """
+    if coords.dim() != 2:
+        raise ValueError("env_mat_celllist takes one frame, coords (N, 3)")
+    box_h = _host(box).reshape(3, 3)
+    if np.any(box_h - np.diag(np.diag(box_h))):
+        raise ValueError("env_mat_celllist takes orthorhombic boxes only")
+    box_d = np.diag(box_h).copy()
+    n_cells = np.maximum((box_d / spec.rcut).astype(int), 1)
+    if np.any(n_cells < 3):
+        raise ValueError(
+            f"env_mat_celllist: the box {box_d.tolist()} holds "
+            f"{n_cells.tolist()} cells of side >= rcut {spec.rcut} per side; "
+            f"fewer than 3 would count neighbors twice: use env_mat")
+    ncx, ncy, ncz = (int(c) for c in n_cells)
+    n_cell_total = ncx * ncy * ncz
+    n = coords.shape[0]
+    dev = coords.device
+    types = torch.as_tensor(types, device=dev).long()
+    bd = torch.as_tensor(box_d, dtype=coords.dtype, device=dev)
+    nc = torch.tensor([ncx, ncy, ncz], device=dev)
+
+    frac = coords.detach() / bd
+    frac = frac - torch.floor(frac)
+    ci = torch.minimum((frac * nc).long(), nc - 1)
+    cell_id = (ci[:, 0] * ncy + ci[:, 1]) * ncz + ci[:, 2]
+    if int(torch.bincount(cell_id, minlength=n_cell_total).max()) \
+            > max_per_cell:
+        raise ValueError(f"env_mat_celllist: a cell holds more than "
+                         f"max_per_cell={max_per_cell} atoms")
+
+    # bucket atoms per cell: sort by cell, rank within each run of equal ids
+    order = torch.argsort(cell_id, stable=True)
+    sorted_cells = cell_id[order]
+    ar = torch.arange(n, device=dev)
+    run_first = torch.full((n_cell_total,), n, device=dev).scatter_reduce(
+        0, sorted_cells, ar, "amin")
+    rank = ar - run_first[sorted_cells]
+    buckets = torch.full((n_cell_total, max_per_cell), -1, device=dev)
+    buckets[sorted_cells, rank] = order
+
+    # 27-cell candidate lists per atom
+    offs = torch.tensor([(dx, dy, dz) for dx in (-1, 0, 1)
+                         for dy in (-1, 0, 1) for dz in (-1, 0, 1)],
+                        device=dev)
+    nb = torch.remainder(ci[:, None, :] + offs[None], nc)
+    nb_cells = (nb[..., 0] * ncy + nb[..., 1]) * ncz + nb[..., 2]
+    cand = buckets[nb_cells].reshape(n, -1)            # (N, 27 * occ)
+
+    # distances to the candidates, minimum image
+    disp = coords[cand.clamp(min=0)] - coords[:, None, :]
+    disp = disp - torch.round(disp / bd) * bd
+    r2 = torch.sum(disp * disp, dim=-1)
+    big = 1e10
+    r2 = torch.where((cand < 0) | (cand == ar[:, None]), big, r2)
+    cand_type = torch.where(cand >= 0, types[cand.clamp(min=0)], -1)
+
+    R_secs, nl_secs = [], []
+    for t in range(spec.ntypes):
+        k = spec.sel[t]
+        r2_t = torch.where(cand_type == t, r2, big)
+        if r2_t.shape[-1] < k:
+            r2_t = F.pad(r2_t, (0, k - r2_t.shape[-1]), value=big)
+        d2, idx = torch.topk(r2_t, k, dim=-1, largest=False, sorted=True)
+        valid = d2 < spec.rcut ** 2
+        d = torch.sqrt(torch.where(valid, d2, 1.0))
+        idx_g = torch.where(valid, idx, 0)
+        vec = torch.gather(disp, -2,
+                           idx_g[..., None].expand(*idx_g.shape, 3))
+        sw = switch_fn(d, spec.rcut_smth, spec.rcut)
+        s = torch.where(valid, sw / d, 0.0)
+        rows = s[..., None] * vec / torch.where(valid, d, 1.0)[..., None]
+        R_secs.append(torch.cat([s[..., None], rows], dim=-1)
+                      * valid[..., None])
+        nl_secs.append(torch.where(valid, torch.gather(cand, -1, idx_g), -1))
+    return torch.cat(R_secs, dim=-2), torch.cat(nl_secs, dim=-1)
+
+
+def atomic_descriptor_ef(params_para, params_vert, spec, coords, box,
+                         types, efield):
+    """se_a_ef descriptor (deepmd/descriptor/se_a_ef.py DescrptSeAEf): two
+    se_e2_a-style sub-descriptors, each with its own embedding nets and
+    stats, over the field-parallel and field-perpendicular environment
+    matrices, concatenated per atom. efield: (..., N, 3) per-atom field
+    vectors (normalized inside)."""
+    from g4s_tpu_torch.models.deepmd.model import atomic_descriptor
+    outs = []
+    for prm, mode in ((params_para, "para"), (params_vert, "vert")):
+        R, nlist = env_mat(coords, box, types, spec.descriptor,
+                           efield=efield, ef_mode=mode)
+        outs.append(atomic_descriptor(prm, spec, R, types, nlist))
+    return torch.cat(outs, dim=-1)
 
 
 def normalize_env_mat(R, types, davg, dstd):

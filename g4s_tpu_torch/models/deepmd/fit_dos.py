@@ -64,8 +64,8 @@ def per_type_outputs(nets, D, types):
 
 def atomic_dos(params, dos_nets, spec: ModelSpec, coords, box, types):
     """(..., N, numb_dos) per-atom DOS (DOSFitting.build)."""
-    R, _ = env_mat(coords, box, types, spec.descriptor)
-    D = atomic_descriptor(params, spec, R, types)
+    R, nlist = env_mat(coords, box, types, spec.descriptor)
+    D = atomic_descriptor(params, spec, R, types, nlist)
     return per_type_outputs(dos_nets, D, types)
 
 

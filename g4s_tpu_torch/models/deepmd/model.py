@@ -1,8 +1,8 @@
-"""se_e2_a energy model: descriptor -> embeddings -> fitting -> E, F, virial
-(counterpart of g4s_tpu/models/deepmd/model.py).
+"""DeePMD energy model: descriptor -> embeddings -> fitting -> E, F,
+virial (counterpart of g4s_tpu/models/deepmd/model.py).
 
 The forward graph the reference builds in TF (deepmd/deepmd/model/ener.py
-+ descriptor/se_a.py DescrptSeA.build):
++ descriptor/se_a.py DescrptSeA.build), for se_e2_a:
 
   R (N, nnei, 4)  normalized per center type
   per (center type tc, neighbor type tn): G = embed_{tc,tn}(s(r))
@@ -13,14 +13,17 @@ The forward graph the reference builds in TF (deepmd/deepmd/model/ener.py
   torch.autograd, in place of the hand-written prod_force_se_a and
   prod_virial adjoints.
 
+The other descriptor types change D: se_e2_r (radial only), se_atten and
+se_a_ebd (a type-embedded neighbor net, se_atten with attention over the
+neighbors), se_t (three-body angles), hybrid (parts concatenated),
+loc_frame (raw rows in a per-atom frame, no nets) and se_a_mask (se_e2_a
+on a finite system with virtual atoms masked out).
+
 As in the reference, both center types' embeddings and fitting nets run
 for every atom and each atom then takes its own type's result. Every
 function takes one frame (coords (N, 3), box (3, 3)) or a batch of frames
-(coords (B, N, 3), box (B, 3, 3)) sharing one types (N,).
-
-Of the reference's descriptor types, se_e2_a and se_e2_r are ported; the
-others (se_atten, se_t, hybrid, loc_frame, se_a_ebd, se_a_mask) raise
-NotImplementedError (ROADMAP.md queue 1, item 6, "The rest of DeePMD").
+(coords (B, N, 3), box (B, 3, 3)) sharing one types (N,), and keeps
+finite second derivatives (training differentiates the forces).
 """
 
 from __future__ import annotations
@@ -32,13 +35,15 @@ import torch
 
 from g4s_tpu_torch.ckpt import rebuild
 from g4s_tpu_torch.models.deepmd.descriptor import (DescriptorSpec, env_mat,
+                                                    env_mat_nopbc,
                                                     normalize_env_mat)
 from g4s_tpu_torch.models.deepmd.network import (embedding_net_apply,
                                                  fitting_net_apply,
                                                  init_embedding_net,
                                                  init_fitting_net)
 
-PORTED_DESCRIPTORS = ("se_e2_a", "se_e2_r")
+PORTED_DESCRIPTORS = ("se_e2_a", "se_e2_r", "se_atten", "se_a_ebd", "se_t",
+                      "hybrid", "loc_frame", "se_a_mask")
 
 
 class ModelSpec(NamedTuple):
@@ -75,12 +80,19 @@ class ModelSpec(NamedTuple):
 
 
 def check_ported(spec: ModelSpec) -> None:
-    if spec.descriptor_type not in PORTED_DESCRIPTORS:
-        raise NotImplementedError(
-            f"descriptor_type {spec.descriptor_type!r} is not ported to "
-            f"g4s_tpu_torch yet (ROADMAP.md queue 1, item 6, 'The rest of "
-            f"DeePMD'); ported: "
-            f"{', '.join(PORTED_DESCRIPTORS)}")
+    """Refuse a descriptor_type that is none of the reference's (whose
+    code falls through to the se_e2_a contraction for any other name), and
+    a hybrid part that is itself a hybrid or a loc_frame (which works on
+    the raw env mat; the reference fails on an index there)."""
+    parts = tuple(spec.hybrid_types) \
+        if spec.descriptor_type == "hybrid" else ()
+    for t in (spec.descriptor_type,) + parts:
+        if t not in PORTED_DESCRIPTORS:
+            raise ValueError(f"unknown descriptor_type {t!r}; known: "
+                             f"{', '.join(PORTED_DESCRIPTORS)}")
+    if {"hybrid", "loc_frame"} & set(parts):
+        raise ValueError(f"hybrid_types {parts}: a hybrid part cannot be a "
+                         f"hybrid or a loc_frame")
 
 
 def map_tree(fn, tree):
@@ -102,19 +114,54 @@ def params_to(params, *, device=None, dtype=None):
     return map_tree(move, params)
 
 
+def _init_embed(gen, spec: ModelSpec, dtype):
+    """Embedding-side parameters of one descriptor type (the reference's
+    _init_embed): embed[tc][tn] nets for se_e2_a, se_e2_r and se_a_mask,
+    the [t1][t2] grid for se_t, {"net", "attn", "tebd"} for se_atten and
+    se_a_ebd (whose attn is empty), [] for loc_frame, {"parts": [...]}
+    for hybrid."""
+    nt = spec.descriptor.ntypes
+    dev = gen.device
+    if spec.descriptor_type == "loc_frame":
+        return []            # no embedding nets: raw local coordinates
+    if spec.descriptor_type == "hybrid":
+        return {"parts": [_init_embed(gen, spec._replace(descriptor_type=t),
+                                      dtype)
+                          for t in spec.hybrid_types]}
+    if spec.descriptor_type in ("se_atten", "se_a_ebd"):
+        # one type-mixed embedding net over [s(r), tebd_j, tebd_i]
+        net = init_embedding_net(gen, spec.embed_neurons,
+                                 in_dim=1 + 2 * spec.tebd_dim,
+                                 resnet_dt=spec.embed_resnet_dt, dtype=dtype)
+        d = spec.attn_dim or spec.m1
+        n_attn = spec.attn_layers if spec.descriptor_type == "se_atten" else 0
+        sc = 1.0 / np.sqrt(spec.m1)
+        attn = [{k: sc * torch.randn(shape, generator=gen, dtype=dtype,
+                                     device=dev)
+                 for k, shape in (("wq", (spec.m1, d)), ("wk", (spec.m1, d)),
+                                  ("wv", (spec.m1, d)), ("wo", (d, spec.m1)))}
+                for _ in range(n_attn)]
+        tebd = 0.1 * torch.randn((nt, spec.tebd_dim), generator=gen,
+                                 dtype=dtype, device=dev)
+        return {"net": net, "attn": attn, "tebd": tebd}
+    # se_e2_a / se_e2_r / se_a_mask: nets indexed [center_type][neighbor_
+    # type]; se_t: the same grid indexed [type1][type2], upper triangle used
+    return [[init_embedding_net(gen, spec.embed_neurons,
+                                resnet_dt=spec.embed_resnet_dt, dtype=dtype)
+             for _ in range(nt)] for _ in range(nt)]
+
+
 def init_params(gen, spec: ModelSpec, *, bias_atom_e=None,
                 dtype=torch.float64):
-    """Parameter tree: embed[tc][tn] nets + fit[tc] nets + stats, drawn
-    from the torch.Generator `gen` on its device."""
+    """Parameter tree: the descriptor's embedding parameters (_init_embed)
+    + fit[tc] nets + stats, drawn from the torch.Generator `gen` on its
+    device."""
     check_ported(spec)
     nt = spec.descriptor.ntypes
     dev = gen.device
     if bias_atom_e is None:
         bias_atom_e = np.zeros(nt)
-    # nets indexed [center_type][neighbor_type]
-    embed = [[init_embedding_net(gen, spec.embed_neurons,
-                                 resnet_dt=spec.embed_resnet_dt, dtype=dtype)
-              for _ in range(nt)] for _ in range(nt)]
+    embed = _init_embed(gen, spec, dtype)
     fit_in = spec.descriptor_dim + spec.numb_fparam + spec.numb_aparam
     fit = [init_fitting_net(gen, fit_in, spec.fit_neurons,
                             resnet_dt=spec.fit_resnet_dt,
@@ -142,12 +189,84 @@ def _select_by_type(per_type, types):
     return out
 
 
-def atomic_descriptor(params, spec: ModelSpec, R, types):
-    """R: (..., N, nnei, 4) raw env mat -> D: (..., N, descriptor_dim)."""
+def atomic_descriptor(params, spec: ModelSpec, R, types, nlist=None):
+    """R: (..., N, nnei, 4) raw env mat -> D: (..., N, descriptor_dim);
+    se_atten and se_a_ebd (alone or in a hybrid) take the neighbor types
+    from nlist, (..., N, nnei)."""
     check_ported(spec)
+    if spec.descriptor_type == "loc_frame":
+        return _descriptor_loc_frame(spec, R)
     Rn = normalize_env_mat(R, types, params["stats"]["davg"],
                            params["stats"]["dstd"])
-    return _descriptor_plain(params["embed"], spec, Rn, types)
+    return _descr_dispatch(params["embed"], spec, Rn, types, nlist)
+
+
+def _descr_dispatch(embed, spec: ModelSpec, Rn, types, nlist):
+    if spec.descriptor_type == "hybrid":
+        # DescrptHybrid (deepmd/descriptor/hybrid.py): the sub-descriptors
+        # over the same neighbor environment, concatenated
+        return torch.cat([
+            _descr_dispatch(embed["parts"][i],
+                            spec._replace(descriptor_type=t), Rn, types,
+                            nlist)
+            for i, t in enumerate(spec.hybrid_types)], dim=-1)
+    if spec.descriptor_type in ("se_atten", "se_a_ebd"):
+        return _descriptor_atten(embed, spec, Rn, types, nlist)
+    if spec.descriptor_type == "se_t":
+        return _descriptor_se_t(embed, spec, Rn)
+    return _descriptor_plain(embed, spec, Rn, types)
+
+
+def _safe_norm(x):
+    """|x| over the last axis, keepdim, with finite first and second
+    derivatives at x = 0 (a missing axis neighbor)."""
+    n2 = torch.sum(x * x, dim=-1, keepdim=True)
+    nz = n2 > 0
+    return torch.where(nz, torch.sqrt(torch.where(nz, n2, 1.0)), 0.0)
+
+
+def _descriptor_loc_frame(spec: ModelSpec, R):
+    """Local-frame descriptor (DescrptLocFrame, deepmd/descriptor/
+    loc_frame.py): an orthonormal frame per atom from two axis neighbors
+    (the first slot of the type-0 and type-1 sections, the axis_rule
+    "closest of type" convention), every neighbor's raw (s, x, y, z)
+    env-mat row expressed in that frame."""
+    sec = np.concatenate([[0], np.cumsum(spec.descriptor.sel)])
+    nt = spec.descriptor.ntypes
+    t1, t2 = 0, min(1, nt - 1)
+    a1 = R[..., sec[t1], 1:4]                      # closest of type t1
+    idx2 = sec[t2] if t2 != t1 else sec[t1] + 1    # a distinct axis atom
+    a2 = R[..., idx2, 1:4]
+    eps = 1e-12
+    e1 = a1 / (_safe_norm(a1) + eps)
+    a2p = a2 - torch.sum(a2 * e1, dim=-1, keepdim=True) * e1
+    e2 = a2p / (_safe_norm(a2p) + eps)
+    e3 = torch.linalg.cross(e1, e2, dim=-1)
+    frame = torch.stack([e1, e2, e3], dim=-2)      # (..., N, 3frame, 3glob)
+    xyz_loc = torch.einsum("...fg,...kg->...kf", frame, R[..., 1:4])
+    D = torch.cat([R[..., 0:1], xyz_loc], dim=-1)
+    return D.reshape(R.shape[:-2] + (-1,))
+
+
+def _descriptor_se_t(embed, spec: ModelSpec, Rn):
+    """Three-body descriptor (DescrptSeT, deepmd/descriptor/se_t.py
+    _filter): for each neighbor-type pair t1 <= t2 the angular matrix
+    theta_jk = x̃_j . x̃_k is embedded by the pair's net and contracted,
+    sum_jk theta_jk G_jk / (sel1 sel2)."""
+    sel = spec.descriptor.sel
+    sec = np.concatenate([[0], np.cumsum(sel)])
+    nt = spec.descriptor.ntypes
+    D = torch.zeros(Rn.shape[:-2] + (spec.m1,), dtype=Rn.dtype,
+                    device=Rn.device)
+    for t1 in range(nt):
+        x1 = Rn[..., sec[t1]: sec[t1 + 1], 1:4]
+        for t2 in range(t1, nt):
+            x2 = Rn[..., sec[t2]: sec[t2 + 1], 1:4]
+            theta = torch.einsum("...jm,...km->...jk", x1, x2)
+            G = embedding_net_apply(embed[t1][t2], theta[..., None])
+            D = D + (torch.einsum("...jk,...jkm->...m", theta, G)
+                     / (sel[t1] * sel[t2]))
+    return D
 
 
 def _descriptor_plain(embed, spec: ModelSpec, Rn, types):
@@ -175,6 +294,43 @@ def _descriptor_plain(embed, spec: ModelSpec, Rn, types):
         D = torch.einsum("...cm,...ck->...mk", T, T2)
         D_by_tc.append(D.reshape(lead + (-1,)))
     return _select_by_type(D_by_tc, types)
+
+
+def _descriptor_atten(emb, spec: ModelSpec, Rn, types, nlist):
+    """DPA-style attention descriptor (DescrptSeAtten, se_atten.py): a
+    type-mixed neighbor embedding of [s(r), tebd_neighbor, tebd_center],
+    refined by dot-product attention over the neighbors (logits of
+    invalid keys set to -1e9, rows of invalid queries zeroed), then the
+    R^T G contraction of se_e2_a. se_a_ebd has no attention layers."""
+    if nlist is None:
+        raise ValueError(f"{spec.descriptor_type} needs the neighbor list "
+                         f"(the types of the neighbors); call it through "
+                         f"total_energy")
+    tebd = emb["tebd"]
+    types = torch.as_tensor(types, device=Rn.device).long()
+    valid = nlist >= 0
+    nb_type = torch.where(valid, types[nlist.clamp(min=0)], 0)
+    t_j = tebd[nb_type]                                # (..., N, nnei, d_t)
+    t_i = tebd[types][:, None, :].expand(t_j.shape)
+    x = torch.cat([Rn[..., 0:1], t_j, t_i], dim=-1)
+    G = embedding_net_apply(emb["net"], x)             # (..., N, nnei, m1)
+    d = spec.attn_dim or spec.m1
+    np_dtype = np.float32 if G.dtype == torch.float32 else np.float64
+    # 1/sqrt(d) rounded as the reference computes it, in G's precision
+    scale = float(np_dtype(1.0) / np.sqrt(np_dtype(d)))
+    for layer in emb["attn"]:
+        q = G @ layer["wq"]
+        k = G @ layer["wk"]
+        v = G @ layer["wv"]
+        logits = torch.einsum("...id,...jd->...ij", q, k) * scale
+        logits = torch.where(valid[..., None, :], logits, -1e9)
+        attn = torch.softmax(logits, dim=-1)
+        attn = torch.where(valid[..., :, None], attn, 0.0)
+        G = G + (attn @ v) @ layer["wo"]
+    G = torch.where(valid[..., None], G, 0.0)
+    T = torch.einsum("...sc,...sm->...cm", Rn, G) / spec.descriptor.nnei
+    D = torch.einsum("...cm,...ck->...mk", T, T[..., : spec.axis_neuron])
+    return D.reshape(Rn.shape[:-2] + (-1,))
 
 
 def env_embedding(embed_tc, spec: ModelSpec, Rn):
@@ -224,13 +380,22 @@ def atomic_energy(params, spec: ModelSpec, D, types, fparam=None,
 
 
 def total_energy(params, spec: ModelSpec, coords, box, types,
-                 fparam=None, aparam=None):
-    """E per frame: a scalar for one frame, (B,) for a batch."""
+                 fparam=None, aparam=None, *, atom_mask=None):
+    """E per frame: a scalar for one frame, (B,) for a batch. se_a_mask
+    treats the frame as a finite system (box unused) and drops the
+    energies of atoms where atom_mask (N,) is False."""
     check_ported(spec)
-    R, _ = env_mat(coords, box, types, spec.descriptor)
-    D = atomic_descriptor(params, spec, R, types)
-    return torch.sum(atomic_energy(params, spec, D, types, fparam, aparam),
-                     dim=-1)
+    if spec.descriptor_type == "se_a_mask":
+        R, nlist = env_mat_nopbc(coords, types, spec.descriptor,
+                                 atom_mask=atom_mask)
+    else:
+        R, nlist = env_mat(coords, box, types, spec.descriptor)
+    D = atomic_descriptor(params, spec, R, types, nlist)
+    ae = atomic_energy(params, spec, D, types, fparam, aparam)
+    if spec.descriptor_type == "se_a_mask" and atom_mask is not None:
+        am = torch.as_tensor(atom_mask, device=ae.device).bool()
+        ae = torch.where(am, ae, 0.0)            # virtual atoms drop out
+    return torch.sum(ae, dim=-1)
 
 
 def energy_force_virial(params, spec: ModelSpec, coords, box, types,
@@ -242,7 +407,8 @@ def energy_force_virial(params, spec: ModelSpec, coords, box, types,
     create_graph=True is the training form (train.batched_efv): E, F and W
     keep their graph, so a loss on the forces differentiates through the
     first backward pass to the parameters. Otherwise E is detached and F
-    and W carry no graph."""
+    and W carry no graph. It passes no atom_mask, as the reference's does:
+    se_a_mask's virtual atoms are masked in total_energy only."""
     with torch.enable_grad():
         x = coords.detach().requires_grad_(True)
         strain = torch.zeros(coords.shape[:-2] + (3, 3), dtype=coords.dtype,

@@ -195,14 +195,17 @@ def test_energy_force_virial_matches_reference(descriptor_type, extra):
 
 
 def test_unported_descriptor_raises():
-    js = tiny_spec()._replace(descriptor_type="se_atten")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Every reference descriptor is ported; a name that is none of them is
+    refused (the reference falls through to the se_e2_a contraction)."""
+    js = tiny_spec()._replace(descriptor_type="se_e3")
+    with pytest.raises(ValueError, match="se_e3"):
         P["model"].init_params(torch.Generator().manual_seed(0),
                                port_spec(js))
 
 
-def test_port_init_params_has_the_reference_tree():
-    js = model_case("se_e2_a", True)
+@pytest.mark.parametrize("descriptor_type", P["model"].PORTED_DESCRIPTORS)
+def test_port_init_params_has_the_reference_tree(descriptor_type):
+    js = model_case(descriptor_type, True)
     jp = jax_params(js)
     pp = P["model"].init_params(torch.Generator().manual_seed(0),
                                 port_spec(js))

@@ -65,6 +65,10 @@ def test_package_imports_no_jax():
             "g4s_tpu_torch.models.deepmd.fit_dos, "
             "g4s_tpu_torch.models.deepmd.fit_tensor, "
             "g4s_tpu_torch.models.deepmd.spin, "
+            "g4s_tpu_torch.models.deepmd.dplr, "
+            "g4s_tpu_torch.models.deepmd.calculator, "
+            "g4s_tpu_torch.models.deepmd.ipi, "
+            "g4s_tpu_torch.models.deepmd.nvnmd, "
             "g4s_tpu_torch.models.cantera, g4s_tpu_torch.ops.odeint, "
             "g4s_tpu_torch.drivers.shock_tube, "
             "g4s_tpu_torch.models.citcoms, "
