@@ -95,7 +95,8 @@ Run from the root of a checkout: `python3 chip_smoke.py`. It
  11. the per-matrix WSELL-K kernels (the reference's two probes,
      benchmarks/static_spmv_probe*.py) on phase 3's stencil pack: the
      chain form (one kernel per tile) and the one-kernel form, each
-     generated for this pack and built by nvcc (wall time printed), against
+     generated for this pack and built by nvcc (started in the background
+     right after phase 3, beside phases 4-10; wall time printed), against
      its plain version and scipy f64 within a relative 1e-5 and against the
      wsell_spmv kernel (max abs error printed), timed warm and cold beside
      WSELL's bound, the plain version and cuSPARSE's CSR SpMV; for the
@@ -124,10 +125,11 @@ Run from the root of a checkout: `python3 chip_smoke.py`. It
      reads, device kernels, busy ms and idle share per step; ms and
      kernels per RHS, jacfwd Jacobian and LU factor + solve at n = 101;
      in f64 the RHS and Jacobian at y0 and tau/2 and the RK initial state
-     on the card against the host CPU, and the host CPU's run_single (tau
-     within 1e-4); the card's run must hold each element and U, rise by
-     500 K and give RK and IG apart; the RK case run a second time on
-     the card, right after the CLI's run: tau and the final state within
+     on the card against the host CPU, and the host CPU's run_single of
+     the same case, run in a process of its own beside the card's runs
+     (tau within 1e-4); the card's run must hold each element and U, rise by
+     500 K and give RK and IG apart; the RK advance to tau/2 run a
+     second time on the card, right after the first: the state within
      1e-10, and whether the two runs are equal bit for bit, printed (past
      ignition the step count is set by rounding: a 1e-15 change of T0
      moves the reference's own count at 45 species from 1,400 to 1,725
@@ -139,10 +141,10 @@ Run from the root of a checkout: `python3 chip_smoke.py`. It
      printed, 0).
  14. the rest of regional CitcomS at Cookbook2's 33x33x9 nodes: in f64,
      Solver=multigrid (levels 3: 33x33x9, 17x17x5, 9x9x3; 8-color
-     Gauss-Seidel smoothing) through its initial solve and 2 steps, on the
+     Gauss-Seidel smoothing) through its initial solve and 1 step, on the
      card against the host CPU within 1e-10 with equal Uzawa and V-cycle
      counts and two card runs bitwise equal, its initial vrms within 1e-3
-     of phase 9's CG; in f32 5 timed steps after a warm-up, s/step,
+     of phase 9's CG; in f32 3 timed steps after a warm-up, s/step,
      V-cycles, host syncs, device kernels, busy ms and idle share per step
      beside phase 9's CG numbers; the thermochemical step (10 tracers per
      element, 81,920, seed 0, buoyancy ratio 1): 3 f64 steps on the card
@@ -173,7 +175,7 @@ Run from the root of a checkout: `python3 chip_smoke.py`. It
      syncs, device kernels, busy ms, idle share); the thermochemical step
      (10 tracers per element, 245,760, seed 0): f64 card against host
      CPU (positions within 1e-13, compositions and the nodal C equal,
-     fields 1e-10), then 3 timed f32 steps; the coupled Exchanger step
+     fields 1e-10), then 2 timed f32 steps; the coupled Exchanger step
      with Cookbook2 inside the sphere, one-way and two-way, f64 card
      against host CPU within 1e-10, the fine boundary T equal to the
      coarse interpolation, one f32 two-way step timed; the segment-sum
@@ -205,6 +207,34 @@ Run from the root of a checkout: `python3 chip_smoke.py`. It
      and train_two_stage's 3 + 3 losses within 1e-8. No Pallas kernel
      lies on this path in the reference, so no hand kernel does here
      (launch counts printed, 0).
+ 17. the multi-rank dry run, g4s_tpu_torch/drivers/multichip.py
+     --full-width --check, as a process group of its own on min(cards,
+     4) ranks with NCCL, one card each, started with phase 13 and running
+     beside it (both host-bound; the script waits for it before phase 14,
+     and prints its lines then) (world 1 on a one-card machine: the halo
+     exchanges then have no neighbour and every all-reduce spans one
+     rank; the CPU tests hold the multi-rank exchanges): the DeePMD
+     data-parallel step (WATER_SPEC, one 192-atom frame per rank; f64
+     leaves within 1e-10 of one process's Trainer step on the card, f32
+     timed), the distributed regional step (Cookbook2 on a px x py brick
+     grid; f64 at 3 Uzawa x 60 CG from the one-device initial solve
+     within 1e-10 of CitcomModel's element-by-element step with equal
+     counts, two runs bitwise equal; f32 s/step, inner CG, host syncs,
+     kernels, busy ms, idle share and NCCL kernels beside the one-device
+     element-by-element step's), the element-sharded full sphere (12
+     caps of 17x17x9; f64 Stokes at 1 x 20 within 1e-10 of
+     FullSphereModel.stokes, two runs bitwise equal; the coupled step
+     with the sharded coarse solve, its fine BCs within 1e-10 of the
+     unsharded ones; f32 shard_full_step timed beside
+     FullSphereModel.step), the NTC sweep striped over the ranks (the
+     dodecane-size synthetic mechanism, two temperatures per rank, each
+     tau within 1e-10 of ignition_delay rerun in the rank's process),
+     dist_spmv on phase 3's stencil within 1e-5 of scipy f64 and of mxv,
+     and dist_spgemm on ER 2^15 with mxm's and scipy's structure and
+     values within 1e-5; any failing rank fails the phase. Its
+     segment-sum launches (the four stages only) are an entry of their
+     own, timed after phase 16 at the distributed regional step's block
+     scatter.
 Device times are medians per call between back-to-back calls queued
 behind a device sleep (g4s_tpu_torch.obs.timings.device_ms); "cold" times
 flush L2 before each call, outside its event pair. Each phase
@@ -219,8 +249,10 @@ from __future__ import annotations
 import collections
 import dataclasses
 import json
+import multiprocessing
 import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -267,11 +299,11 @@ DEEPMD_FREEZE_F32_TOL = 1e-5
 # relative to each one's largest entry, the Redlich-Kwong initial state,
 # the CPU run's ignition delay; the reference's invariants of a
 # constant-UV ignition (tests/test_cantera.py:164-186): elements, U, a
-# temperature rise. The host CPU's run stops at CANTERA_CPU_T_END_OVER_TAU
-# times the card's larger tau (at most the protocol's 5 ms), past the OH
-# peak; the state at tau/2 is integrated at CANTERA_HALF_RTOL (it only
-# places the comparisons and the profiled window of CANTERA_WINDOW
-# steps).
+# temperature rise. The host CPU runs the CLI's case to the protocol's
+# 5 ms in a process of its own beside the card's runs, and the phase waits
+# at most CANTERA_HOST_TIMEOUT s for it; the state at tau/2 is integrated
+# at CANTERA_HALF_RTOL (it only places the comparisons and the profiled
+# window of CANTERA_WINDOW steps).
 CANTERA_SEED = 0
 CANTERA_COUNTS = {"nspec": 100, "nrxn": 553, "n_falloff": 15,
                   "n_three_body": 19}
@@ -281,12 +313,13 @@ CANTERA_TAU_TOL = 1e-4
 CANTERA_ELEMENT_TOL = 1e-8
 CANTERA_U_TOL = 1e-6
 CANTERA_T_RISE = 500.0
-CANTERA_CPU_T_END_OVER_TAU = 1.25
+CANTERA_HOST_TIMEOUT = 600
 CANTERA_HALF_RTOL = 1e-6
 CANTERA_WINDOW = 40
-# the RK case run a second time on the card: tau and the final state
-# relative to the first run (rounding from another history of the process
-# moved tau by up to 4.5e-12 on an H100)
+# the RK advance to tau/2 run a second time on the card: the state
+# relative to the first run's (rounding from another history of the
+# process moved the full run's tau by up to 4.5e-12 on an H100; the
+# multichip driver's NTC check reruns whole cases, phase 17)
 CANTERA_REPEAT_TOL = 1e-10
 # the rest of regional CitcomS (phase 14): multigrid, the thermochemical
 # step and one step of each other branch, f64 on the card against the host
@@ -295,6 +328,11 @@ CANTERA_REPEAT_TOL = 1e-10
 # 1e-3); tracers per element of the thermochemical run (81,920 tracers)
 CITCOMS_TAIL_TOL = 1e-10
 CITCOMS_MG_VRMS_TOL = 1e-3
+# multigrid's f64 steps after the initial solve (card twice, host CPU once)
+# and its timed f32 steps (cut from 2 and 5 to keep the whole script in its
+# time beside phase 17)
+CITCOMS_MG_F64_STEPS = 1
+CITCOMS_MG_F32_STEPS = 3
 CITCOMS_TRACERS_PER_ELEMENT = 10
 # the CitcomS full sphere (phase 15): nodes per cap (nodex = nodey, nodez);
 # Ra 1e5, radius_inner 0.55, free slip, tests/test_citcoms.py's blob. Free
@@ -312,7 +350,7 @@ CITCOMS_FULL_FIXED = dict(accuracy=0.0, piterations=1, vlowstep=20)
 CITCOMS_FULL_SPREAD_CAP = dict(accuracy=0.0, piterations=3, vlowstep=60)
 CITCOMS_FULL_SPREAD_FACTOR = 100.0
 CITCOMS_FULL_F32_STEPS = 5
-CITCOMS_FULL_TRACER_STEPS = 3
+CITCOMS_FULL_TRACER_STEPS = 2
 # the rest of DeePMD (phase 16): the water frame (atoms, box side), the cell
 # list's tilings of it (checked, timed), i-PI exchanges timed, NVNMD's
 # CNN + QNN training steps
@@ -320,6 +358,10 @@ DEEPMD_TAIL_FRAME = (192, 12.444661)
 DEEPMD_TAIL_TILES = (2, 4)
 DEEPMD_TAIL_IPI_EXCHANGES = 10
 DEEPMD_TAIL_NVNMD_STEPS = 3
+# the multi-rank dry run (phase 17): at most this many ranks, one card
+# each, and the multichip driver's time limit
+MULTICHIP_MAX_WORLD = 4
+MULTICHIP_TIMEOUT = 900
 
 
 def _say(phase: str, **kw) -> None:
@@ -2189,6 +2231,24 @@ def _syncs(fn) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
+def _cantera_host_run(path: str, T0: float, P0: float, rtol: float,
+                      atol: float) -> dict:
+    """Phase 13's host-CPU reference: ShockTubeBenchmark.run_single on the
+    host CPU as the CLI runs it on the card (the protocol's end time), one
+    torch thread. Runs in a process of its own, beside the card's runs.
+    Per phase: tau, end time, BDF steps and wall s."""
+    import torch
+    torch.set_num_threads(1)
+    from g4s_tpu_torch.models.cantera import ShockTubeBenchmark
+    out = ShockTubeBenchmark(path, device="cpu").run_single(
+        T0, P0, rtol=rtol, atol=atol)
+    return {name: {"tau": out[f"tau_{name}"],
+                   "t_end": out[f"result_{name}"].t,
+                   "steps": out[f"result_{name}"].steps,
+                   "wall_s": out[f"wall_{name}"]}
+            for name in ("RG", "IG")}
+
+
 def _cantera_shock_tube(dev) -> None:
     """Phase 13: Cantera's NonIdealShockTube protocol on the card, at the
     n-dodecane mechanism's size (a synthetic mechanism with its counts,
@@ -2207,12 +2267,13 @@ def _cantera_shock_tube(dev) -> None:
     one RHS, one jacfwd Jacobian and one LU factor + solve at n = 101.
     (3) f64, the card against the host CPU: RHS and Jacobian at y0 and at
     tau/2 within CANTERA_F64_TOL of the largest entry, the initial state
-    within CANTERA_Y0_TOL, and the CPU's run_single, stopped at
-    CANTERA_CPU_T_END_OVER_TAU times the card's tau: tau within
-    CANTERA_TAU_TOL. (4) The card's run: success, each element
-    within CANTERA_ELEMENT_TOL and U within CANTERA_U_TOL of their initial
-    values, a temperature rise of at least CANTERA_T_RISE, and the RK tau
-    apart from the IG tau. No hand kernel lies on this path (launch counts
+    within CANTERA_Y0_TOL, and the CPU's run_single of the CLI's case,
+    started in a process of its own when the phase starts so that it runs
+    beside the card's work: tau within CANTERA_TAU_TOL. (4) The card's
+    run: success, each element within CANTERA_ELEMENT_TOL and U within
+    CANTERA_U_TOL of their initial values, a temperature rise of at least
+    CANTERA_T_RISE, and the RK tau apart from the IG tau. (2b) The RK
+    advance to tau/2 run twice: the states within CANTERA_REPEAT_TOL. No hand kernel lies on this path (launch counts
     printed, 0)."""
     import tempfile
 
@@ -2221,7 +2282,7 @@ def _cantera_shock_tube(dev) -> None:
 
     from g4s_tpu_torch.drivers import shock_tube as shock_tube_cli
     from g4s_tpu_torch.models.cantera import (R_GAS, ShockTubeBenchmark,
-                                              ignition_delay, stoich_mixture)
+                                              stoich_mixture)
     from g4s_tpu_torch.obs.timings import device_activities
     from g4s_tpu_torch.ops import bwell_spmv, odeint, route, segment, \
         wsell_spmv
@@ -2234,6 +2295,12 @@ def _cantera_shock_tube(dev) -> None:
     tmp = tempfile.TemporaryDirectory()
     path = os.path.join(tmp.name, "ndodecane_synthetic.yaml")
     _synthetic_mechanism_yaml(path, seed=CANTERA_SEED, **CANTERA_COUNTS)
+    # ---- 3 (host CPU): the CPU's run of the CLI's case starts now, in a
+    # process of its own, and is read after the card's checks ----
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    t_cpu = time.perf_counter()
+    host_run = pool.apply_async(_cantera_host_run,
+                                (path, T0, P0, rtol, atol))
     t0 = time.perf_counter()
     bench = ShockTubeBenchmark(path, device=dev)
     load_s = time.perf_counter() - t0
@@ -2259,33 +2326,6 @@ def _cantera_shock_tube(dev) -> None:
     t0 = time.perf_counter()
     out = shock_tube_cli.main(["--mech", path])
     run_s = time.perf_counter() - t0
-    # ---- 1b: the RK case again on the card, as the CLI ran it, right
-    # after it: tau and the final state within CANTERA_REPEAT_TOL, and
-    # whether the steps, RHS and Jacobian calls, accepted steps, records
-    # and final state are equal bit for bit (printed: they are not after
-    # some histories of the process, ROADMAP.md section 3) ----
-    res1, tau1 = out["result_RG"], out["tau_RG"]
-    t0 = time.perf_counter()
-    tau2, res2 = ignition_delay(bench.r_rk, T0, P0,
-                                stoich_mixture(bench.r_rk.mech), rtol=rtol,
-                                atol=atol)
-    rep_s = time.perf_counter() - t0
-    bitwise = ((res1.steps, res1.n_fev, res1.n_jev)
-               == (res2.steps, res2.n_fev, res2.n_jev) and tau2 == tau1
-               and all(torch.equal(a, b) for a, b in (
-                   (res1.y, res2.y), (res1.record, res2.record),
-                   (res1.record_t, res2.record_t))))
-    tau_err = abs(tau2 - tau1) / tau1
-    y_err = _rel_err(res2.y.cpu(), res1.y.cpu())
-    _check(tau_err <= CANTERA_REPEAT_TOL and y_err <= CANTERA_REPEAT_TOL,
-           f"shock tube RK: a second card run's tau {tau2} against {tau1}, "
-           f"final state {y_err}")
-    _say("13-cantera-rk-repeat", steps_first=res1.steps,
-         steps_repeat=res2.steps, n_fev=f"{res1.n_fev},{res2.n_fev}",
-         n_jev=f"{res1.n_jev},{res2.n_jev}", bitwise_equal=bitwise,
-         tau_rel_err=f"{tau_err:.3g}", y_rel_err=f"{y_err:.3g}",
-         tol=CANTERA_REPEAT_TOL, wall_s=f"{rep_s:.3f}")
-
     phases = {"RG": (bench.r_rk, host.r_rk), "IG": (bench.r_ig, host.r_ig)}
     n = m.nspec + 1
     for name, (r, r_cpu) in phases.items():
@@ -2320,8 +2360,32 @@ def _cantera_shock_tube(dev) -> None:
                f"elements {el_err}, U {u_err}, T rise {t_rise}")
 
         # ---- 2: the parts, at the state at tau/2 ----
-        y_half = r.advance(y0, tau / 2, rtol=CANTERA_HALF_RTOL,
-                           atol=atol).y
+        half = r.advance(y0, tau / 2, rtol=CANTERA_HALF_RTOL, atol=atol)
+        y_half = half.y
+        if name == "RG":
+            # ---- 2b: the RK advance to tau/2 again on the card, right
+            # after it: the state within CANTERA_REPEAT_TOL, and whether
+            # the steps, RHS and Jacobian calls and the state are equal bit
+            # for bit (printed: past ignition they are not after some
+            # histories of the process, ROADMAP.md section 3) ----
+            t0 = time.perf_counter()
+            again = r.advance(y0, tau / 2, rtol=CANTERA_HALF_RTOL,
+                              atol=atol)
+            rep_s = time.perf_counter() - t0
+            bitwise = ((half.steps, half.n_fev, half.n_jev)
+                       == (again.steps, again.n_fev, again.n_jev)
+                       and torch.equal(half.y, again.y))
+            y_err = _rel_err(again.y.cpu(), half.y.cpu())
+            _check(again.success and y_err <= CANTERA_REPEAT_TOL,
+                   f"shock tube RK: a second card run to tau/2 ends "
+                   f"{y_err} from the first")
+            _say("13-cantera-rk-repeat", t_end_us=f"{tau / 2 * 1e6:.4f}",
+                 rtol=CANTERA_HALF_RTOL, steps_first=half.steps,
+                 steps_repeat=again.steps,
+                 n_fev=f"{half.n_fev},{again.n_fev}",
+                 n_jev=f"{half.n_jev},{again.n_jev}", bitwise_equal=bitwise,
+                 y_rel_err=f"{y_err:.3g}", tol=CANTERA_REPEAT_TOL,
+                 wall_s=f"{rep_s:.3f}")
         jac = torch.func.jacfwd(r.rhs, argnums=1)
         eye = torch.eye(n, dtype=y0.dtype, device=dev)
         J = jac(0.0, y_half)
@@ -2377,24 +2441,27 @@ def _cantera_shock_tube(dev) -> None:
                f"{y0_err}, {errs}")
         phases[name] = (r, r_cpu, res, tau, y0_err, errs)
 
-    t_end = min(0.005, CANTERA_CPU_T_END_OVER_TAU
-                * max(out["tau_RG"], out["tau_IG"]))
     t0 = time.perf_counter()
-    out_c = host.run_single(T0, P0, rtol=rtol, atol=atol, t_end=t_end)
-    cpu_s = time.perf_counter() - t0
+    out_c = host_run.get(timeout=CANTERA_HOST_TIMEOUT)
+    cpu_wait_s = time.perf_counter() - t0
+    cpu_s = time.perf_counter() - t_cpu
+    pool.close()
+    pool.join()
     for name, (r, r_cpu, res, tau, y0_err, errs) in phases.items():
-        tau_c, res_c = out_c[f"tau_{name}"], out_c[f"result_{name}"]
+        c = out_c[name]
+        tau_c = c["tau"]
         tau_err = abs(tau - tau_c) / tau_c
         _check(tau_err <= CANTERA_TAU_TOL,
                f"shock tube {name}: tau {tau} on the card, {tau_c} on the "
                f"host CPU")
         _say(f"13-cantera-card-vs-cpu-{name}",
-             cpu_t_end_ms=f"{t_end * 1e3:.4f}", y0_rel_err=f"{y0_err:.3g}",
+             cpu_t_end_ms=f"{c['t_end'] * 1e3:.4f}",
+             y0_rel_err=f"{y0_err:.3g}",
              **{k: f"{v:.3g}" for k, v in errs.items()},
              tol=CANTERA_F64_TOL, tau_card_us=f"{tau * 1e6:.4f}",
              tau_cpu_us=f"{tau_c * 1e6:.4f}", tau_rel_err=f"{tau_err:.3g}",
-             steps_card=res.steps, steps_cpu=res_c.steps,
-             cpu_wall_s=f"{out_c[f'wall_{name}']:.3f}")
+             steps_card=res.steps, steps_cpu=c["steps"],
+             cpu_wall_s=f"{c['wall_s']:.3f}")
     _check(out["tau_RG"] != out["tau_IG"],
            f"RK and IG ignition delays equal: {out['tau_RG']}")
 
@@ -2402,6 +2469,7 @@ def _cantera_shock_tube(dev) -> None:
     _say("13-cantera", cli_run_s=f"{run_s:.3f}",
          tau_RG_over_IG=f"{out['tau_RG'] / out['tau_IG']:.6f}",
          cpu_run_single_s=f"{cpu_s:.3f}",
+         cpu_run_waited_s=f"{cpu_wait_s:.3f}",
          hand_kernel_launches=sum(mod.LAUNCHES for mod in launch_mods))
 
 
@@ -2426,16 +2494,17 @@ def _timed_steps(s, steps: int, step):
 def _profiled_step(step, s):
     """Device kernels, busy ms and segment sums of one more step(s) under
     torch.profiler, and the kernels that took the most of its busy time
-    ("top": name, launches, ms)."""
-    from g4s_tpu_torch.obs.timings import device_activities
+    ("top": name, launches, ms), and the profiles it took ("tries")."""
+    from g4s_tpu_torch.obs import timings
     t0 = time.perf_counter()
-    acts = device_activities(lambda: step(s))
+    acts = timings.device_activities(lambda: step(s))
     by_name = collections.defaultdict(lambda: [0, 0.0])
     for name, us in acts:
         by_name[name][0] += 1
         by_name[name][1] += us / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:4]
     return {"kernels": len(acts), "seconds": time.perf_counter() - t0,
+            "tries": timings.PROFILE_TRIES,
             "busy_ms": sum(us for _, us in acts) / 1e3,
             "segment_sums": sum("sorted_segment_sum_kernel" in name
                                 for name, _ in acts),
@@ -2539,7 +2608,7 @@ def _citcoms_tail(dev, cookbook2, cg9: dict, ms_of) -> dict:
     # ---- (a) Solver=multigrid, levels 3: 33x33x9 -> 17x17x5 -> 9x9x3 ----
     mgcfg = dataclasses.replace(cookbook2, solver_type="multigrid", levels=3)
 
-    def mg_run(model, steps=2):
+    def mg_run(model, steps=CITCOMS_MG_F64_STEPS):
         """[(state, (Uzawa, V-cycles))] after the initial solve and each
         step."""
         s, mon = model.initial_solve(model.init_state())
@@ -2588,10 +2657,11 @@ def _citcoms_tail(dev, cookbook2, cg9: dict, ms_of) -> dict:
     mg32 = CitcomModel(mgcfg, dtype=torch.float32, device=dev)
     s32, _ = mg32.initial_solve(mg32.init_state())
     s32, _ = mg32.step(s32)                                   # warm-up
-    t32 = _timed_steps(s32, 5, mg32.step)
+    t32 = _timed_steps(s32, CITCOMS_MG_F32_STEPS, mg32.step)
     p32 = _profiled_step(mg32.step, t32["s"])
     wall = t32["wall_s"]
-    _say("14-multigrid-f32", warmup_steps=1, timed_steps=5,
+    _say("14-multigrid-f32", warmup_steps=1,
+         timed_steps=CITCOMS_MG_F32_STEPS,
          s_per_step=f"{wall:.4f}", vcycles_per_step=t32["inner"],
          host_syncs_per_step=t32["host_syncs"],
          device_kernels_per_step=p32["kernels"],
@@ -2603,7 +2673,8 @@ def _citcoms_tail(dev, cookbook2, cg9: dict, ms_of) -> dict:
          cg_device_kernels_per_step=cg9["kernels"],
          cg_device_busy_ms_per_step=cg9["busy_ms"],
          cg_device_idle_share=cg9["idle"],
-         profile_s=f"{p32['seconds']:.1f}", seconds=since())
+         profile_s=f"{p32['seconds']:.1f}",
+         profile_tries=p32["tries"], seconds=since())
     # the segment sums' inputs at the shapes this phase adds, held and
     # timed after its launches are read: restriction at both levels
     seg_inputs = {}
@@ -2678,7 +2749,8 @@ def _citcoms_tail(dev, cookbook2, cg9: dict, ms_of) -> dict:
          device_kernels_per_step=pr["kernels"],
          device_busy_ms_per_step=f"{pr['busy_ms']:.2f}",
          device_idle_share=f"{max(0.0, 1 - pr['busy_ms'] / 1e3 / t32['wall_s']):.3f}",
-         profile_s=f"{pr['seconds']:.1f}", seconds=since())
+         profile_s=f"{pr['seconds']:.1f}",
+         profile_tries=pr["tries"], seconds=since())
     del tm, tm32, s32, t32
 
     # ---- (c) one f64 step of each other branch, card against host CPU ---
@@ -2946,7 +3018,8 @@ def _citcoms_full(dev, cookbook2, ms_of) -> dict:
          device_idle_share=f"{max(0.0, 1 - p32['busy_ms'] / 1e3 / wall):.3f}",
          segment_sums_per_step=p32["segment_sums"], vrms=f"{vrms:.6g}",
          top_kernels_name_launches_ms=p32["top"],
-         profile_s=f"{p32['seconds']:.1f}", seconds=since())
+         profile_s=f"{p32['seconds']:.1f}",
+         profile_tries=p32["tries"], seconds=since())
 
     # ---- (c) the thermochemical step -------------------------------------
     pos0, fl0 = full_tracers.seed_tracers(
@@ -2996,7 +3069,8 @@ def _citcoms_full(dev, cookbook2, ms_of) -> dict:
          device_idle_share=f"{max(0.0, 1 - pt['busy_ms'] / 1e3 / tt['wall_s']):.3f}",
          C_min=f"{float(C.min()):.4g}", C_max=f"{float(C.max()):.4g}",
          top_kernels_name_launches_ms=pt["top"],
-         profile_s=f"{pt['seconds']:.1f}", seconds=since())
+         profile_s=f"{pt['seconds']:.1f}",
+         profile_tries=pt["tries"], seconds=since())
     del box, st, tt
 
     # ---- (d) the coupled step: Cookbook2 inside the full sphere ---------
@@ -3114,8 +3188,33 @@ def _tile_overlap(fn, tiles: int, tries: int = 8) -> float:
                        f"{tiles} tile kernels")
 
 
+def _start_static_builds(ws, dev):
+    """Phase 11's two per-matrix builds of phase 3's pack `ws`, one nvcc
+    each, started in background threads so that they run beside phases
+    4-10 (the one-kernel form's nvcc takes about 68 s). Returns the pack's
+    window starts and counts and, per form, a future of (kernel, seconds
+    from this call until it was built)."""
+    import concurrent.futures
+    from g4s_tpu_torch.ops import static_spmv
+    starts_h, kc_h = static_spmv.static_windows(ws)
+    t0 = time.perf_counter()
+
+    def built(fn, *args, **kw):
+        return fn(*args, **kw), time.perf_counter() - t0
+
+    pool = concurrent.futures.ThreadPoolExecutor(2)
+    futures = {
+        "static_spmv_chain": pool.submit(built, static_spmv.build_static_chain,
+                                         ws, starts_h, kc_h, device=dev),
+        "static_spmv_one": pool.submit(
+            built, static_spmv.build_static_one_kernel, ws, starts_h, kc_h,
+            STATIC_ONE_TILES, device=dev)}
+    pool.shutdown(wait=False)
+    return starts_h, kc_h, futures
+
+
 def _static_kernels(dev, ws, x_pad, a_p, err, ms, plain_ms, library_ms,
-                    bound, launches, ms_of, flush_l2) -> None:
+                    bound, launches, ms_of, flush_l2, builds) -> None:
     """Phase 11: both per-matrix WSELL-K kernels (ops/static_spmv.py, the
     reference's two probes) on phase 3's stencil pack `ws`, its x and its
     RCM-renumbered matrix `a_p`: each built by nvcc for this pack, against
@@ -3123,28 +3222,23 @@ def _static_kernels(dev, ws, x_pad, a_p, err, ms, plain_ms, library_ms,
     wsell_spmv kernel (the same products in the same order), and timed warm
     and cold beside the bound of WSELL's row, its plain version and
     cuSPARSE's CSR SpMV of the same rows. The one kernel covers the first
-    STATIC_ONE_TILES tiles (all when None)."""
-    import concurrent.futures
-
+    STATIC_ONE_TILES tiles (all when None). `builds` is
+    _start_static_builds's result: the kernels were built beside phases
+    4-10, and this waits for them."""
     import numpy as np
     import torch
     from g4s_tpu_torch.ops import static_spmv, wsell_spmv
-    starts_h, kc_h = static_spmv.static_windows(ws)
+    starts_h, kc_h, futures = builds
     # the plain version's timing takes them on the card: a copy from the
     # host would make each call wait for the device
     starts_d = torch.from_numpy(starts_h).to(dev)
     kc_d = torch.from_numpy(kc_h).to(dev)
     tiles = ws.lanes.shape[0]
     t0 = time.perf_counter()
-    # one nvcc per form, both started together
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        chain = pool.submit(static_spmv.build_static_chain, ws, starts_h,
-                            kc_h, device=dev)
-        one = pool.submit(static_spmv.build_static_one_kernel, ws, starts_h,
-                          kc_h, STATIC_ONE_TILES, device=dev)
-        forms = {"static_spmv_chain": chain.result(),
-                 "static_spmv_one": one.result()}
-    build_s = time.perf_counter() - t0
+    done = {name: f.result() for name, f in futures.items()}
+    waited_s = time.perf_counter() - t0
+    forms = {name: r[0] for name, r in done.items()}
+    build_s = max(r[1] for r in done.values())
     n = a_p.shape[0]
     y_ws = wsell_spmv.spmv_wsell_chain(ws, x_pad)
     y64 = a_p.astype(np.float64) @ x_pad[:n].cpu().numpy().astype(np.float64)
@@ -3186,6 +3280,7 @@ def _static_kernels(dev, ws, x_pad, a_p, err, ms, plain_ms, library_ms,
         _say("11-static", kernel=name, tiles=f"{f.n_tiles}/{tiles}",
              packs=starts_h.shape[0], K=ws.k, kc_mean=f"{kc_h.mean():.3f}",
              nvcc_s=f"{f.nvcc_s:.2f}", build_wall_s=f"{build_s:.2f}",
+             phase11_waited_s=f"{waited_s:.2f}",
              launches_per_call=launches[name],
              rel_err_vs_plain=f"{rel_pl:.3g}",
              rel_err_vs_scipy_f64=f"{rel_sp:.3g}",
@@ -3198,6 +3293,173 @@ def _static_kernels(dev, ws, x_pad, a_p, err, ms, plain_ms, library_ms,
         del a_rows
 
 
+def _multichip_start() -> dict:
+    """Phase 17, first part: write the dodecane-size mechanism and start
+    the multi-rank dry run at full width (g4s_tpu_torch/drivers/multichip.py
+    --full-width --check) on min(cards, MULTICHIP_MAX_WORLD) ranks, NCCL,
+    one card each, as a process group of its own, so that it runs beside
+    phase 13 (both are host-bound: the card idles 0.90-0.98 of their
+    time). Returns the running driver; _multichip_wait reads it and
+    _multichip_stop ends its group."""
+    import tempfile
+    import torch
+    here = os.path.dirname(os.path.abspath(__file__))
+    world = min(torch.cuda.device_count(), MULTICHIP_MAX_WORLD)
+    tmp = tempfile.TemporaryDirectory()
+    mech = os.path.join(tmp.name, "mech.yaml")
+    _synthetic_mechanism_yaml(mech, **CANTERA_COUNTS, seed=CANTERA_SEED)
+    run = {"world": world, "tmp": tmp,
+           "res_path": os.path.join(tmp.name, "multichip.json"),
+           "out_path": os.path.join(tmp.name, "driver.out"),
+           "err_path": os.path.join(tmp.name, "driver.err")}
+    cmd = [sys.executable, "-m", "g4s_tpu_torch.drivers.multichip",
+           "--world", str(world), "--device", "cuda", "--mech", mech,
+           "--full-width", "--check", "--json-out", run["res_path"]]
+    env = dict(os.environ, PYTHONPATH=here)
+    with open(run["out_path"], "w") as out, open(run["err_path"], "w") as err:
+        run["t0"] = time.perf_counter()
+        run["p"] = subprocess.Popen(cmd, cwd=here, env=env,
+                                    stdin=subprocess.DEVNULL, stdout=out,
+                                    stderr=err, start_new_session=True)
+    return run
+
+
+def _multichip_stop(run: dict) -> None:
+    """End the multichip driver's process group (the driver and its rank
+    processes) if it still runs, and remove its files."""
+    p = run["p"]
+    if p.poll() is None:
+        try:
+            os.killpg(p.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        p.wait()
+    run["tmp"].cleanup()
+
+
+def _multichip_wait(run: dict) -> dict:
+    """Phase 17, second part: wait for the multichip driver (at most
+    MULTICHIP_TIMEOUT s from its start), print its lines and what its
+    ranks checked, and fail unless it exited 0 with every check passed.
+    Returns its JSON result."""
+    import torch
+    p, world = run["p"], run["world"]
+    try:
+        p.wait(timeout=max(1.0, MULTICHIP_TIMEOUT
+                           - (time.perf_counter() - run["t0"])))
+    except subprocess.TimeoutExpired:
+        _multichip_stop(run)
+        _check(False, f"the multichip driver ran past {MULTICHIP_TIMEOUT} s")
+    driver_s = time.perf_counter() - run["t0"]
+    with open(run["out_path"]) as f:
+        stdout = f.read()
+    for line in stdout.splitlines():
+        print(f"[17-driver] {line}", flush=True)
+    if p.returncode != 0:
+        with open(run["err_path"]) as f:
+            print(f.read()[-6000:], file=sys.stderr, flush=True)
+    _check(p.returncode == 0,
+           f"the multichip driver exited with {p.returncode}")
+    last = (stdout.strip().splitlines() or [""])[-1]
+    _check(last.endswith(" OK"), f"multichip: {last}")
+    with open(run["res_path"]) as f:
+        res = json.load(f)
+    _check(res["world"] == world and res["backend"] == "nccl",
+           f"multichip ran world {res['world']} on {res['backend']}")
+    _say("17-multichip", world=world, backend=res["backend"],
+         cards_visible=torch.cuda.device_count(),
+         exchanges=("no_neighbour_at_one_rank:_the_CPU_tests_hold_"
+                    "multi-rank_exchanges" if world == 1 else
+                    f"{world}_ranks"),
+         ran_beside="phase_13", driver_s=f"{driver_s:.1f}",
+         stage_s=",".join(f"{v['seconds']:.1f}"
+                          for v in res["stages"].values()),
+         checks_s=f"{res['seconds'] - sum(v['seconds'] for v in res['stages'].values()):.1f}")
+
+    def num(d):
+        return json.dumps({k: (f"{v:.4g}" if isinstance(v, float) else v)
+                           for k, v in d.items()}).replace(" ", "")
+
+    _say("17-dp", frames=world, loss=f"{res['dp']['loss']:.6f}",
+         f32_step_s=f"{res['dp']['f32_step_s']:.4f}",
+         f64_leaf_rel_err_vs_one_process=f"{res['dp']['f64_leaf_rel_err']:.3g}",
+         tol=res["dp"]["tol"])
+    rg = res["regional"]
+    _say("17-regional-f64", nodes=rg["nodes"], px=rg["px"], py=rg["py"],
+         uzawa_cg=rg["f64_uzawa_cg"], bitwise_runs=rg["bitwise_runs"],
+         rel_err_vs_one_device_eltk=num(rg["f64_rel_err_vs_one_device"]),
+         tol=rg["tol"])
+    for key in ("f32_distributed", "f32_one_device_eltk"):
+        _say(f"17-regional-{key.replace('_', '-')}", **{
+            k: (f"{v:.4f}" if isinstance(v, float) else v)
+            for k, v in rg[key].items()})
+    fs = res["full"]
+    _say("17-full-f64", nodes_per_cap=fs["nodes_per_cap"], nel=fs["nel"],
+         uzawa_cg=fs["f64_uzawa_cg"], bitwise_runs=fs["bitwise_runs"],
+         rel_err_vs_one_device=num(fs["f64_rel_err_vs_one_device"]),
+         tol=fs["tol"])
+    for key in ("f32_sharded_step", "f32_one_device_step"):
+        _say(f"17-full-{key.replace('_', '-')}", **{
+            k: (f"{v:.4f}" if isinstance(v, float) else v)
+            for k, v in fs[key].items()})
+    cp = fs["coupled"]
+    _say("17-coupled-f64", bc_rel_err_vs_unsharded=num(
+        cp["bc_rel_err_vs_unsharded"]), tol=cp["tol"],
+         coarse_uzawa_cg=cp["coarse_uzawa_cg"],
+         fine_uzawa_cg=cp["fine_uzawa_cg"])
+    sp_ = res["sparse"]
+    _say("17-dist-sparse", **{k: (f"{v:.3g}" if isinstance(v, float)
+                                  else v) for k, v in sp_.items()})
+    nt = res["ntc"]
+    _say("17-ntc", cases=len(nt["T"]), cases_per_rank=nt["cases_per_rank"],
+         T=",".join(f"{t:g}" for t in nt["T"]),
+         tau_RG_us=",".join(f"{t * 1e6:.2f}" for t in nt["tau_RG"]),
+         tau_IG_us=",".join(f"{t * 1e6:.2f}" for t in nt["tau_IG"]),
+         t_end=nt["t_end"], rtol=nt["rtol"], sweep_s=f"{nt['sweep_s']:.1f}",
+         tau_rel_err_vs_rank_rerun=f"{nt['tau_rel_err_vs_rank_rerun']:.3g}",
+         tol=nt["tol"])
+    return res
+
+
+def _multichip(dev, ms_of, res: dict) -> dict:
+    """Phase 17, last part, after phase 16: the multichip driver's
+    segment-sum launches (its four stages only), and the kernel timed at
+    the distributed regional step's block scatter on a card that nothing
+    else uses. Returns the launches and that reading."""
+    import numpy as np
+    import torch
+    from g4s_tpu_torch.models.citcoms import assembly, load_config
+    from g4s_tpu_torch.models.citcoms.distributed import (DistributedCitcom,
+                                                          _block_slices)
+    from g4s_tpu_torch.parallel.mesh import device_mesh_shape
+    here = os.path.dirname(os.path.abspath(__file__))
+    world = res["world"]
+    launches = res["launches"]
+    _check(launches["sorted_segment_sum"] > 0,
+           "the multichip stages launched no segment-sum kernel")
+
+    # the segment-sum kernel at the distributed regional step's block
+    # scatter (assemble_grad_p's (nel_loc*8, 3) rows into nno_loc nodes),
+    # f32 as stage 2 runs it
+    cfg = load_config(os.path.join(here, "g4s_tpu_torch", "models",
+                                   "citcoms", "cookbook2.cfg"))
+    px, py = device_mesh_shape(world, 2)
+    nxl = _block_slices(cfg.nodex, px)[0][1] - _block_slices(cfg.nodex,
+                                                            px)[0][0]
+    nyl = _block_slices(cfg.nodey, py)[0][1] - _block_slices(cfg.nodey,
+                                                            py)[0][0]
+    ien = DistributedCitcom._local_ien(nyl, nxl, cfg.nodez)
+    nno = nyl * nxl * cfg.nodez
+    plan = assembly.ScatterPlan.build(ien, nno, dev)
+    rng = np.random.default_rng(17)
+    rows = torch.from_numpy(rng.standard_normal((ien.shape[0] * 8, 3))).to(
+        dev, torch.float32)
+    r = _segment_sum_case("17-segment-sum", "dist_block_scatter", "f32",
+                          rows, plan.seg_ids, plan.order, nno, ms_of)
+    _say("17-launches", **launches)
+    return {"launches": launches["sorted_segment_sum"], "segment_sum": r}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3205,6 +3467,9 @@ def main() -> int:
               "False); this script runs only on a GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    # a SIGTERM ends the script through its finally blocks, which stop
+    # the processes it started
+    signal.signal(signal.SIGTERM, lambda signum, frame: sys.exit(143))
     import warnings
 
     import numpy as np
@@ -3506,8 +3771,10 @@ def main() -> int:
            f"stencil mxv runs {len(names)} device kernels: {names}")
     _say("3-kernels", device_kernels_per_mxv=len(names),
          permute_gather=n_perm, names=_kernel_names(names))
-    # phase 11 runs the per-matrix kernels on this pack, x and matrix
+    # phase 11 runs the per-matrix kernels on this pack, x and matrix;
+    # their nvcc builds start now and overlap phases 4-10
     ws3, x_pad3 = g.wsell, x_pad
+    static_builds = _start_static_builds(ws3, dev)
     del g, A
 
     laps.append((4, time.perf_counter()))
@@ -3938,7 +4205,7 @@ def main() -> int:
     laps.append((11, time.perf_counter()))
     # ---- 11: the per-matrix static kernels at the stencil of phase 3 -----
     _static_kernels(dev, ws3, x_pad3, A_p, err, ms, plain_ms, library_ms,
-                    bound, launches, ms_of, flush_l2)
+                    bound, launches, ms_of, flush_l2, static_builds)
     del ws3, x_pad3, A_p
 
     laps.append((12, time.perf_counter()))
@@ -3946,8 +4213,17 @@ def main() -> int:
     _deepmd_train(dev)
 
     laps.append((13, time.perf_counter()))
-    # ---- 13: Cantera's NonIdealShockTube at the dodecane size ------------
-    _cantera_shock_tube(dev)
+    # ---- 13: Cantera's NonIdealShockTube at the dodecane size, with phase
+    # 17's multichip driver running beside it in processes of its own; the
+    # script waits for the driver before phase 14, so that phases 14-16
+    # have the card to themselves ----------------------------------------
+    mc_run = _multichip_start()
+    try:
+        _cantera_shock_tube(dev)
+        laps.append(("17_after_13", time.perf_counter()))
+        mc_res = _multichip_wait(mc_run)
+    finally:
+        _multichip_stop(mc_run)
 
     laps.append((14, time.perf_counter()))
     # ---- 14: the rest of regional CitcomS at Cookbook2's size ------------
@@ -3976,6 +4252,18 @@ def main() -> int:
     # ---- 16: the rest of DeePMD at the water model's width --------------
     _deepmd_tail(dev)
 
+    laps.append((17, time.perf_counter()))
+    # ---- 17: the multi-rank dry run's segment-sum kernel ----------------
+    mc = _multichip(dev, ms_of, mc_res)
+    # phase 17's segment sums are an entry of their own: the launches of
+    # the multichip driver's four stages, read at the regional block's
+    # scatter
+    launches["sorted_segment_sum_multichip"] = mc["launches"]
+    err["sorted_segment_sum_multichip"] = mc["segment_sum"]["err"]
+    for d, k in ((ms, "ms"), (plain_ms, "plain_ms"),
+                 (library_ms, "library_ms"), (bound, "bound")):
+        d["sorted_segment_sum_multichip"] = mc["segment_sum"][k]
+
     laps.append((None, time.perf_counter()))
     _say("phase-seconds", **{f"p{k}": f"{t1 - t0:.1f}" for (k, t0), (_, t1)
                              in zip(laps, laps[1:])},
@@ -3987,6 +4275,8 @@ def main() -> int:
                "sorted_segment_sum_citcoms_tail":
                    "g4s_tpu_torch/csrc/segment_sum.cu",
                "sorted_segment_sum_citcoms_full":
+                   "g4s_tpu_torch/csrc/segment_sum.cu",
+               "sorted_segment_sum_multichip":
                    "g4s_tpu_torch/csrc/segment_sum.cu",
                # CUDA generated per matrix by this module
                "static_spmv_chain": "g4s_tpu_torch/ops/static_spmv.py",
@@ -4006,6 +4296,10 @@ def main() -> int:
             "g4s_tpu/models/citcoms/assembly.py:52 (ScatterPlan.scatter "
             "on the full sphere: jax.ops.segment_sum; XLA, no Pallas "
             "kernel)",
+        "sorted_segment_sum_multichip":
+            "g4s_tpu/models/citcoms/distributed.py:225 (the block's "
+            "ScatterPlan.scatter inside shard_map: jax.ops.segment_sum; "
+            "XLA, no Pallas kernel)",
         "static_spmv_chain": "benchmarks/static_spmv_probe.py:42 "
                              "(_static_kernel)",
         "static_spmv_one": "benchmarks/static_spmv_probe2.py:42 "

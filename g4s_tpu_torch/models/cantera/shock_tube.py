@@ -7,11 +7,12 @@ stoichiometric n-dodecane/air at 40 atm in a constant-UV reactor, ignition
 delay = time of peak OH (the script uses peak OH mass fraction, :40-42 —
 at constant volume that is the peak OH concentration), run once at 1000 K
 for the Redlich-Kwong and ideal phases (:77-148) and swept over the NTC
-temperature range (:198-266), one case after another.
+temperature range (:198-266), one case after another, or striped over the
+ranks of a torch.distributed group (`run_ntc_sweep_sharded`, the script's
+mpi4py `counter % nprocs == rank`).
 
 Not ported yet (ROADMAP.md, queue 1, "The Cantera integrator tail"): the
-lockstep batched sweep (`run_ntc_sweep_batched`) and the sweep sharded
-over devices (`run_ntc_sweep_sharded`, with `parallel/`).
+lockstep batched sweep (`run_ntc_sweep_batched`).
 """
 
 from __future__ import annotations
@@ -49,12 +50,12 @@ def stoich_mixture(mech: Mechanism, fuel: str = "c12h26", phi: float = 1.0,
 
 def ignition_delay(reactor: IdealGasConstVolumeReactor, T0: float, P0: float,
                    X0: np.ndarray, *, t_end: float = 0.005,
-                   rtol=1e-9, atol=1e-15):
+                   rtol=1e-9, atol=1e-15, record_size: int = 20000):
     """One ignition-delay case: integrate, return (tau, result); tau is the
     recorded time of the largest recorded OH concentration."""
     y0 = reactor.initial_state(T0, P0, X0)
     res = reactor.advance(y0, t_end, rtol=rtol, atol=atol,
-                          record_species="oh")
+                          record_species="oh", record_size=record_size)
     oh = res.record[:, 1]
     tau = res.record_t[torch.argmax(oh)]
     return float(tau), res
@@ -109,8 +110,41 @@ class ShockTubeBenchmark:
             "BDF) is not ported yet; ROADMAP.md, queue 1, \"The Cantera "
             "integrator tail\"; run_ntc_sweep runs the cases in turn")
 
-    def run_ntc_sweep_sharded(self, *args, **kw):
-        raise NotImplementedError(
-            "run_ntc_sweep_sharded (the NTC sweep over a device mesh) waits "
-            "for parallel/; ROADMAP.md, queue 1, \"The Cantera integrator "
-            "tail\"; run_ntc_sweep runs the cases in turn")
+    def run_ntc_sweep_sharded(self, group=None,
+                              temperatures: Sequence[float] = NTC_TEMPERATURES,
+                              P0: float = 40 * 101325.0, *,
+                              t_end: float = 0.005, rtol=1e-9, atol=1e-15,
+                              record_size: int = 20000):
+        """The NTC sweep striped over the ranks of a torch.distributed
+        group (None: the default group), the NonIdealShockTube.py:229-231
+        rank striding (`if counter % nprocs == rank`): rank r integrates
+        the cases i with i % world == r, one after another, each with
+        ignition_delay for both phases, and the taus are all-gathered.
+        There is no coupling between cases, so no padding of the case
+        list. Returns {"T", "tau_RG", "tau_IG"} on every rank."""
+        import torch.distributed as dist
+
+        world = dist.get_world_size(group)
+        rank = dist.get_rank(group)
+        temps = [float(t) for t in temperatures]
+        X_rk = stoich_mixture(self.mech_rk, self.fuel)
+        X_ig = stoich_mixture(self.mech_ig, self.fuel)
+        kw = dict(t_end=t_end, rtol=rtol, atol=atol, record_size=record_size)
+        mine = np.zeros((2, len(temps)))
+        for i in range(rank, len(temps), world):
+            mine[0, i] = ignition_delay(self.r_rk, temps[i], P0, X_rk,
+                                        **kw)[0]
+            mine[1, i] = ignition_delay(self.r_ig, temps[i], P0, X_ig,
+                                        **kw)[0]
+        # NCCL moves device tensors only: the taus travel on the reactors'
+        # device
+        local = torch.as_tensor(mine, dtype=torch.float64,
+                                device=self.r_rk.device)
+        parts = [torch.empty_like(local) for _ in range(world)]
+        dist.all_gather(parts, local, group=group)
+        taus = torch.stack(parts).cpu().numpy()
+        return {"T": temps,
+                "tau_RG": [float(taus[i % world, 0, i])
+                           for i in range(len(temps))],
+                "tau_IG": [float(taus[i % world, 1, i])
+                           for i in range(len(temps))]}

@@ -142,17 +142,21 @@ def pg_timestep(adv: AdvectionGeometry, ien, plan: ScatterPlan,
     return T, Tdot
 
 
-def advect_monitored(advect, T0, dt0, tbc_mask, monitor: bool):
+def advect_monitored(advect, T0, dt0, tbc_mask, monitor: bool, *,
+                     reduce_max=None):
     """Max-T guard: redo `advect(dt) -> (T, Tdot)` with halved dt while the
     interior maximum grows past T_maxvaried=1.05 (PG_timestep_solve
     do/while, Advection_diffusion.c:234-280; at most 5 retries).
-    Returns (T, Tdot, dt_used)."""
+    reduce_max(x) -> the largest entry of x (default x.max(); a sharded
+    model passes its all-rank maximum). Returns (T, Tdot, dt_used)."""
     if not monitor:
         T, Tdot = advect(dt0)
         return T, Tdot, dt0
+    if reduce_max is None:
+        reduce_max = torch.amax
 
     def interior_max(T):
-        return torch.where(tbc_mask, float("-inf"), T).max()
+        return reduce_max(torch.where(tbc_mask, float("-inf"), T))
 
     T_int0 = interior_max(T0).clamp(min=1e-30)
     T, Tdot = advect(dt0)

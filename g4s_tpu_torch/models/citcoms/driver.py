@@ -96,10 +96,17 @@ class CitcomModel:
     and runs its steps."""
 
     def __init__(self, cfg: CitcomConfig, *, dtype=torch.float64,
-                 device="cuda", df64_inner: bool = False):
+                 device="cuda", df64_inner: bool = False,
+                 matvec: str = "auto"):
+        """matvec: the velocity stiffness product, "auto" (the engine's
+        choice: the 27-point stencil on this regular grid) or "eltk" (the
+        element-by-element form, the one DistributedCitcom runs)."""
         if df64_inner:
             _not_ported("the df64 inner solver (df64_solver.py), which "
                         "exists for a chip without f64", "\"Not ported\"")
+        if matvec not in ("auto", "eltk"):
+            raise ValueError(f"matvec {matvec!r}: expected 'auto' or 'eltk'")
+        self.matvec = matvec
         self.cfg = cfg
         self.dtype = dtype
         self.device = resolve_device(device)
@@ -311,11 +318,13 @@ class CitcomModel:
         # (assemble_del2_u's dispatch, Element_calculations.c:428-443);
         # on this regular grid the dispatcher picks the stencil, built
         # once per viscosity update
-        W = build_stencil(ops.elt_k, self.stencil_plan)
+        candidates = {"eltk": {"ops": ops}}
+        if self.matvec == "auto":
+            candidates["stencil"] = {
+                "W": build_stencil(ops.elt_k, self.stencil_plan),
+                "mask": vbc_mask}
         og = engine.build_operator(
-            {"stencil": {"W": W, "mask": vbc_mask},
-             "eltk": {"ops": ops}},
-            stats={"regular_grid": True, "nel": self.mesh.nel})
+            candidates, stats={"regular_grid": True, "nel": self.mesh.nel})
         prob = prob._replace(A=lambda u: engine.apply_operator(og, u))
         if self.cfg.solver_type in ("bicg", "bicgstab"):
             return sol.uzawa_bicgstab(prob, V, P, F, fdotf, self.uzawa_params)

@@ -46,10 +46,17 @@ def _regional_boundary_nodes(cfg) -> np.ndarray:
 class CoupledRun:
     """Two-way coupled coarse full-sphere + fine regional convection. Both
     models must live on `device` (default "cuda": it raises without a
-    card; pass device="cpu" with models built on the CPU)."""
+    card; pass device="cpu" with models built on the CPU).
+
+    coarse_stokes: a stokes(T, V, P) -> (V, P, monitor) that replaces the
+    coarse model's own solve in every coupled step, e.g. its element-
+    sharded solve over several ranks
+    (full_driver.shard_full_sphere(coarse, grid)); every rank then runs
+    the coupled step, and the fine model's, whole."""
 
     def __init__(self, coarse: FullSphereModel, fine: CitcomModel,
-                 *, two_way: bool = True, device="cuda"):
+                 *, two_way: bool = True, device="cuda",
+                 coarse_stokes=None):
         dev = resolve_device(device)
         if coarse.device != dev or fine.device != dev:
             raise ValueError(
@@ -58,6 +65,7 @@ class CoupledRun:
         self.coarse = coarse
         self.fine = fine
         self.two_way = two_way
+        self.coarse_stokes = coarse_stokes
 
         # fine boundary nodes in Cartesian (sampling sites on the coarse
         # sphere), like the Exchanger's createBoundary; the interpolation
@@ -125,7 +133,8 @@ class CoupledRun:
     def step(self, s_coarse, s_fine, *, fine_substeps: int = 1):
         """One coupled step: advance coarse, exchange BCs, advance fine
         (optionally several substeps at its smaller CFL dt), restrict."""
-        s_coarse, d_c = self.coarse.step(s_coarse)
+        s_coarse, d_c = self.coarse._timestep(s_coarse,
+                                              stokes=self.coarse_stokes)
         tbc_val, vbc_val = self.exchange(s_coarse.T, s_coarse.V)
         for _ in range(fine_substeps):
             s_fine, d_f = self.fine_step(s_fine, tbc_val, vbc_val)

@@ -14,6 +14,21 @@ projects them out of a velocity field.
 Mesh constants are built once in f64 on the host and cast to the model's
 dtype on its device; a step runs eagerly, its solver loops on the host
 (solvers.py), with no other read of the device.
+
+Over several ranks (torch.distributed), `shard_full_sphere` and
+`shard_full_step` split the ELEMENTS over one RankGrid axis
+(ElementShardedFullSphere), as the reference's pjit does:
+  - replicated on every rank: every nodal field (T, Tdot, V, the boundary
+    masks and values, the lumped mass, the layer sums, the net-rotation
+    bases) and the step's scalars;
+  - sharded: every per-element tensor (ien, B, gda, cc, G, gradN, volume,
+    materials, sizes and each solve's elt_k) and the pressure inside a
+    solve;
+  - collectives: one all-reduce (SUM) after every element-to-node scatter
+    (the rank's sorted segment sum), one per pressure dot or norm and per
+    velocity dot or norm (each rank sums its own range of nodes), one
+    all-rank maximum for the CFL rate and for the max-T guard, and one
+    all-gather of P at the end of a solve.
 """
 
 from __future__ import annotations
@@ -37,6 +52,7 @@ from g4s_tpu_torch.models.citcoms.shapes import (_PPOINT,
                                                  shape_n)
 from g4s_tpu_torch.models.citcoms.viscosity import viscosity_at_vpts
 from g4s_tpu_torch.ops.segment import sorted_segment_sum
+from g4s_tpu_torch.parallel.collectives import pmax, psum_scalar
 from g4s_tpu_torch.sparse.containers import resolve_device
 
 
@@ -185,12 +201,20 @@ class FullSphereModel:
         buoy = self.buoyancy(T, C)
         F = asm.assemble_forces(ops, self.N, self.gda, self.gweight,
                                 self.cc, buoy)
-        fdotf = torch.sqrt(torch.dot(F.reshape(-1), F.reshape(-1)))
+        prob = self._problem(ops)
+        fdotf = torch.sqrt(prob.dot_v(F, F))
         V = asm.apply_vbc(V, self.vbc_mask, self.vbc_val)
-        prob = sol.local_problem(ops, self.nmass, self.e_area,
-                                 self.total_volume)
         V, P, mon = sol.uzawa_cg(prob, V, P, F, fdotf, self.uzawa_params)
         return self.remove_net_rotation(V), P, mon
+
+    def _problem(self, ops: asm.StokesOperators) -> sol.StokesProblem:
+        return sol.local_problem(ops, self.nmass, self.e_area,
+                                 self.total_volume)
+
+    @staticmethod
+    def _max(x):
+        """The largest entry of x (a sharded model's: over every rank)."""
+        return torch.amax(x)
 
     # ------------------------------------------------------------------
     def remove_net_rotation(self, V):
@@ -219,7 +243,7 @@ class FullSphereModel:
     def _cfl_dt(self, V):
         vv = V[self.ien]
         uc = torch.einsum("eai,a->ei", vv, self.N_center[:, 0])
-        fastest = torch.sum(uc.abs() / self.e_size, dim=1).max()
+        fastest = self._max(torch.sum(uc.abs() / self.e_size, dim=1))
         # a true division (a Python number over a tensor multiplies by the
         # reciprocal)
         limit = torch.full_like(fastest, self.cfg.finetunedt * 0.5) / fastest
@@ -240,11 +264,14 @@ class FullSphereModel:
                 tbc_mask=self.tbc_mask, tbc_val=self.tbc_val)
 
         return adv_mod.advect_monitored(advect, T0, dt0, self.tbc_mask,
-                                        cfg.monitor_max_T)
+                                        cfg.monitor_max_T,
+                                        reduce_max=self._max)
 
-    def _timestep(self, s: State):
+    def _timestep(self, s: State, stokes=None):
+        # stokes(T, V, P) -> (V, P, monitor) replaces the model's own solve
+        # (CoupledRun's coarse_stokes)
         T, Tdot, dt = self._advect_T(s.T, s.Tdot, s.V, self._cfl_dt(s.V))
-        V, P, mon = self._stokes(T, s.V, s.P)
+        V, P, mon = (stokes or self._stokes)(T, s.V, s.P)
         diag = StepDiagnostics(dt, mon.v_norm, mon.p_norm,
                                mon.incompressibility, mon.outer_iterations,
                                mon.inner_iterations)
@@ -298,3 +325,139 @@ class FullSphereModel:
                                mon.inner_iterations)
         new_s = State(T, Tdot, V, P, s.time + dt, dt, s.step + 1)
         return new_s, diag, pos, C_nodes
+
+
+# ----------------------------------------------------------------------
+# element sharding over torch.distributed ranks
+# ----------------------------------------------------------------------
+
+
+class _AllReducePlan:
+    """A rank's ScatterPlan over its own elements, its partial nodal sums
+    then summed over the ranks (one all-reduce): the nodal result is the
+    whole mesh's, on every rank."""
+
+    def __init__(self, plan: asm.ScatterPlan, group):
+        self.plan = plan
+        self.nno = plan.nno
+        self._group = group
+
+    def scatter(self, contrib):
+        import torch.distributed as dist
+        out = self.plan.scatter(contrib)
+        dist.all_reduce(out, group=self._group)
+        return out
+
+
+class ElementShardedFullSphere(FullSphereModel):
+    """A FullSphereModel whose elements are split over the ranks of one
+    RankGrid axis (shard_full_sphere, shard_full_step).
+
+    Rank r owns elements [r * per, (r + 1) * per) of the mesh's element
+    list padded to a multiple of the world size with zero elements (node 0,
+    zero tensors, unit volume: they add nothing and their pressure stays
+    0), as the reference pads them. Replicated on every rank: every nodal
+    field (T, Tdot, V, masks, lumped mass, the layer sums, net rotation)
+    and the step's scalars. Sharded: every per-element tensor (ien, B,
+    gda, cc, G, gradN, volume, materials, sizes, elt_k) and the Uzawa
+    pressure inside a solve; the solve returns the whole P, all-gathered.
+
+    Where the collectives sit (the ones the reference's pjit inserts):
+      - every element-to-node scatter (K u, G p, forces, diag(K), the SUPG
+        residual) is the rank's sorted segment sum, then one all-reduce;
+      - pressure dots and norms: one all-reduce each of the rank's part;
+      - velocity dots and norms (replicated vectors): each rank sums a
+        contiguous range of nodes (ownership weights), one all-reduce;
+      - the CFL rate and the max-T guard's interior maximum: one all-rank
+        maximum each;
+      - the solve's P: one all-gather at its end.
+    So every host decision (CG, Uzawa, the max-T guard) reads a value that
+    was all-reduced. Tracer steps are not sharded (step_tracers raises)."""
+
+    def __init__(self, model: FullSphereModel, grid, axis: str = "e"):
+        self.__dict__.update(model.__dict__)
+        self._tracer_field = None
+        self.grid, self.axis = grid, axis
+        self._group = grid.group(axis)
+        world, r = grid.size(axis), grid.index(axis)
+        nel, nno = model.mesh.nel, model.mesh.nno
+        per = -(-nel // world)
+        self.n_pad = per * world - nel
+        self._per, self._lo = per, r * per
+        lo, hi = min(r * per, nel), min((r + 1) * per, nel)
+        dev = model.device
+
+        def part(x, fill=0):
+            blk = x[lo:hi]
+            if hi - lo == per:
+                return blk.contiguous()
+            pad = torch.full((per - (hi - lo),) + tuple(x.shape[1:]), fill,
+                             dtype=x.dtype, device=x.device)
+            return torch.cat([blk, pad])
+
+        for name in ("ien", "B", "gda", "cc", "G", "gradN", "mat",
+                     "e_size"):
+            setattr(self, name, part(getattr(model, name)))
+        self.e_area = part(model.e_area, fill=1.0)
+        ien = np.asarray(model.mesh.ien)[lo:hi]
+        ien = np.concatenate([ien, np.zeros((per - (hi - lo), 8), ien.dtype)])
+        self.plan = _AllReducePlan(asm.ScatterPlan.build(ien, nno, dev),
+                                   self._group)
+        self.adv_geo = model.adv_geo._replace(
+            gda=self.gda, gradN=self.gradN, e_size=self.e_size)
+        # the rank's share of the nodes for the velocity reductions
+        own = np.zeros(nno)
+        own[r * nno // world:(r + 1) * nno // world] = 1.0
+        self._own = torch.as_tensor(own, dtype=self.dtype, device=dev)
+
+    def _psum(self, x):
+        return psum_scalar(x, self.grid, self.axis)
+
+    def _max(self, x):
+        return pmax(x, self.grid, self.axis)
+
+    def _problem(self, ops: asm.StokesOperators) -> sol.StokesProblem:
+        w3 = self._own[:, None]
+        vw = (self.nmass * self._own)[:, None]
+        tv, area = self.total_volume, self.e_area
+        return sol.local_problem(ops, self.nmass, area, tv)._replace(
+            dot_v=lambda a, b: self._psum(torch.sum(a * b * w3)),
+            dot_p=lambda a, b: self._psum(torch.dot(a, b)),
+            v_norm2=lambda v: self._psum(torch.sum(v * v * vw)) / tv,
+            p_norm2=lambda p: self._psum(torch.sum(p * p * area)) / tv,
+            div_norm2=lambda p: self._psum(torch.sum(p * p / area)) / tv)
+
+    def _stokes(self, T, V, P, C=None):
+        import torch.distributed as dist
+        full = torch.cat([P, P.new_zeros(self.n_pad)]) if self.n_pad else P
+        P_loc = full[self._lo:self._lo + self._per]
+        V, P_loc, mon = super()._stokes(T, V, P_loc, C)
+        parts = [torch.empty_like(P_loc)
+                 for _ in range(self.grid.size(self.axis))]
+        dist.all_gather(parts, P_loc.contiguous(), group=self._group)
+        return V, torch.cat(parts)[:self.mesh.nel], mon
+
+    def step_tracers(self, s, pos, flavors):
+        raise NotImplementedError(
+            "the tracer step is not element-sharded; run step_tracers on "
+            "the FullSphereModel")
+
+
+def shard_full_sphere(model: FullSphereModel, grid, axis: str = "e"):
+    """The full-sphere Stokes solve by ELEMENT sharding over the ranks of
+    `grid`'s `axis` (ElementShardedFullSphere: elements padded to a
+    multiple of the axis size with zero elements). Returns
+    stokes(T, V, P) -> (V, P, UzawaMonitor), its inputs and outputs whole
+    on every rank."""
+    return ElementShardedFullSphere(model, grid, axis).stokes
+
+
+def shard_full_step(model: FullSphereModel, grid, axis: str = "e"):
+    """The full-sphere TIMESTEP (SUPG advection + Stokes) by element
+    sharding. Requires nel % (axis size) == 0, as the reference does (pick
+    nodex so 12 (nodex-1)^2 (nodez-1) divides it). Returns
+    step(state) -> (state, StepDiagnostics), whole on every rank."""
+    n = grid.size(axis)
+    if model.mesh.nel % n:
+        raise ValueError(f"nel {model.mesh.nel} not divisible by {n} ranks")
+    return ElementShardedFullSphere(model, grid, axis).step

@@ -122,6 +122,11 @@ def device_ms(fn, *, device="cuda", reps: int = 30, warmup: int = 3,
                        "the device")
 
 
+# profiles the last device_activities call took (1 when its first held
+# all of fn's activities)
+PROFILE_TRIES = 0
+
+
 def device_kernels(fn, *, tries: int = 10) -> list:
     """Names of the device activities (kernels, copies, fills) of one
     fn() call on the card, in order, as torch.profiler records them."""
@@ -135,18 +140,23 @@ def device_activities(fn, *, tries: int = 10) -> list:
     The tracer can lose the first activities of a profile, more of them
     the longer the process has run (on an H100, 1 to 5 or more in the
     later phases of chip_smoke.py), or all of a profile's. So short device
-    sleeps run before fn inside the same profile, 8 in the first profile
+    sleeps run before fn inside the same profile, 64 in the first profile
     and twice as many in each one taken again, and one runs after it; a
     profile counts only when fn's activities have a sleep before and after
     them, so that no loss reached them; they are returned without the
-    sleeps. Any other profile is taken again, up to `tries` times."""
+    sleeps. Any other profile is taken again, up to `tries` times, and
+    PROFILE_TRIES holds how many profiles the last call took: each one
+    runs fn again, so a profile of 10^5 kernels that is taken again costs
+    tens of seconds."""
+    global PROFILE_TRIES
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for attempt in range(tries):
+        PROFILE_TRIES = attempt + 1
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(8 << attempt):
+            for _ in range(64 << attempt):
                 torch.cuda._sleep(1000)
             torch.cuda.synchronize()
             fn()

@@ -661,3 +661,81 @@ def test_sorted_segment_sum_full_sphere_plans(cuda):
             want = segment._sorted_segment_sum_plain(
                 data.to(dtype), ids.cpu(), num, order=order.cpu())
             assert torch.equal(a, b) and torch.equal(a.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# torch.distributed on the card: one NCCL rank per card
+# ---------------------------------------------------------------------------
+
+
+def test_multichip_driver_on_the_card(cuda, tmp_path):
+    """drivers/multichip.py --device cuda at the reference's tiny settings
+    on every visible card (at most 4): NCCL, the four stages in order,
+    OK; asking for one rank more than there are cards raises."""
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    from chip_smoke import _synthetic_mechanism_yaml
+    mech = str(tmp_path / "small.yaml")
+    _synthetic_mechanism_yaml(mech, nspec=15, nrxn=30, n_falloff=2,
+                              n_three_body=2, seed=0)
+    world = min(torch.cuda.device_count(), 4)
+    cmd = [sys.executable, "-m", "g4s_tpu_torch.drivers.multichip",
+           "--world", str(world), "--device", "cuda", "--mech", mech,
+           "--rk-phase", "nDodecane_RK", "--ig-phase", "nDodecane_IG",
+           "--fuel", "c12h26", "--ntc-temps",
+           ",".join(str(1450.0 + 25 * i) for i in range(world)),
+           "--ntc-t-end", "3.2e-4"]
+    env = dict(os.environ, PYTHONPATH=repo)
+    p = subprocess.run(cmd, cwd=repo, env=env, capture_output=True,
+                       text=True, timeout=600)
+    assert p.returncode == 0, p.stdout + p.stderr
+    lines = p.stdout.strip().splitlines()
+    assert lines[0].startswith(f"multichip: world={world} backend=nccl")
+    assert lines[-1].startswith(f"multichip({world}):")
+    assert lines[-1].endswith(" OK")
+    cmd[4] = str(torch.cuda.device_count() + 1)
+    q = subprocess.run(cmd, cwd=repo, env=env, capture_output=True,
+                       text=True, timeout=300)
+    assert q.returncode != 0 and "each rank needs a card" in q.stderr
+
+
+def test_distributed_citcom_on_cuda_matches_one_device(cuda):
+    """One NCCL rank: DistributedCitcom's f64 step at a fixed cap on the
+    card equals CitcomModel's element-by-element step on the card within
+    1e-10, and two runs are bitwise equal."""
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = r"""
+import torch
+from g4s_tpu_torch.parallel import RankGrid, init_from_env
+from g4s_tpu_torch.models.citcoms import CitcomConfig, CitcomModel
+from g4s_tpu_torch.models.citcoms.distributed import DistributedCitcom
+dev = init_from_env("cuda")
+cfg = CitcomConfig(nodex=9, nodey=9, nodez=5, theta_min=0.7854,
+                   theta_max=1.5708, fi_min=0.0, fi_max=0.7854,
+                   radius_inner=0.55, radius_outer=1.0, rayleigh=1e5,
+                   topvbc=1, topvbxval=100.0, num_mat=4, accuracy=0.0,
+                   piterations=3, vlowstep=60)
+d = DistributedCitcom(cfg, RankGrid(("bx", "by"), (1, 1)), device=dev)
+a, da = d.step(d.init_state())
+b, db = d.step(d.init_state())
+assert all(torch.equal(a[k], b[k]) for k in a)
+m = CitcomModel(cfg, device=dev, matvec="eltk")
+s, dm = m.step(m.init_state())
+for k in ("T", "Tdot", "V", "P"):
+    e = float((a[k] - getattr(s, k)).abs().max()
+              / getattr(s, k).abs().max())
+    assert e <= 1e-10, (k, e)
+assert (da.uzawa_iterations, da.inner_iterations) == (
+    dm.uzawa_iterations, dm.inner_iterations)
+print("ok")
+"""
+    from g4s_tpu_torch.parallel import launch
+    env = dict(os.environ, PYTHONPATH=repo)
+    launch.run_ranks(1, lambda r: [sys.executable, "-c", code], env=env,
+                     cwd=repo, timeout=300)

@@ -89,7 +89,16 @@ def test_package_imports_no_jax():
             "g4s_tpu_torch.models.citcoms.netcdf3, "
             "g4s_tpu_torch.models.citcoms.ggrd, "
             "g4s_tpu_torch.models.citcoms.mineral_physics, "
-            "g4s_tpu_torch.drivers.citcoms_regional; "
+            "g4s_tpu_torch.drivers.citcoms_regional, "
+            "g4s_tpu_torch.parallel, g4s_tpu_torch.parallel.mesh, "
+            "g4s_tpu_torch.parallel.collectives, "
+            "g4s_tpu_torch.parallel.halo, g4s_tpu_torch.parallel.sphere, "
+            "g4s_tpu_torch.parallel.launch, g4s_tpu_torch.ops.dist_spmv, "
+            "g4s_tpu_torch.ops.dist_spgemm, "
+            "g4s_tpu_torch.models.citcoms.distributed, "
+            "g4s_tpu_torch.models.citcoms.combine, "
+            "g4s_tpu_torch.models.cantera.shock_tube, "
+            "g4s_tpu_torch.drivers.multichip; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'g4s_tpu.')) or m == 'g4s_tpu'); "
             "print(bad); sys.exit(1 if bad else 0)")
