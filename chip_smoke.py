@@ -235,6 +235,42 @@ Run from the root of a checkout: `python3 chip_smoke.py`. It
      segment-sum launches (the four stages only) are an entry of their
      own, timed after phase 16 at the distributed regional step's block
      scatter.
+ 18. Cantera's 1-D flames, equilibrium, transport, surface kinetics and
+     SolutionArray at phase 13's mechanism (the synthetic 100-species
+     n-dodecane one, now with transport blocks; its ideal-gas phase),
+     f64, started right after phase 13 in the main process while phase
+     17's multi-rank run goes on; the host CPU's side of each check runs in
+     spawned one-thread processes beside the card's work: (1) transport
+     at full width on the burner's initial profile (mixture-averaged,
+     L-matrix conductivity, thermal and multicomponent diffusion;
+     Stefan-Maxwell on a seeded state with every species present, as
+     absent species make its system singular), the high-pressure model
+     (Redlich-Kwong phase) and DustyGas, within FLAME_TOL of the host
+     CPU; (2) equilibrate_hp of the stoichiometric 400 K inlet (elements
+     kept within FLAME_EQ_TOL, T and x within FLAME_EQ_TOL of the host
+     CPU's), equilibrium_temperature_uv of phase 13's final ideal-gas
+     state beside its T, SolutionArray over the marched flame's points
+     against the host CPU's; (3) BurnerFlame at FLAME_BURNER, "mix",
+     marched by solve(**FLAME_MARCH) (the reference test's H2 flame
+     settings, its march time cut; see FLAME_MARCH): RHS and the
+     coloured Jacobian at the initial profile and the marched state
+     within FLAME_TOL of the host CPU's, the downstream
+     T at most the equilibrate_hp T + FLAME_T_MARGIN, the residual
+     reduction beside the reference test's 0.05, steps, n_fev, n_jev, s
+     per step, kernels, busy ms and idle share per step of a profiled
+     window, peak memory, the Jacobian's ms, and two card runs of the
+     first FLAME_REPEAT_STEPS steps bitwise equal; (4) the free flame's
+     eigenvalue, solve_flame_speed on FreeFlame(FLAME_FREE_POINTS) with
+     the reference test's iters 3 and FLAME_FREE_MARCH (mdot, Su,
+     position error), then damped_newton on anchored_residual for
+     FLAME_NEWTON_ITERS iterations with its host solve's share of the
+     time; (5) the "multi" + Soret burner, the counterflow flame and the
+     impinging jet: RHS and Jacobian within FLAME_TOL of the host CPU's;
+     (6) a seeded synthetic Pt interface (_synthetic_interface_yaml, the
+     size of ptcombust.yaml) on the gas: advance_coverages within
+     FLAME_COVERAGE_TOL of the host CPU's, coverages summing to 1 within
+     1e-12. No Pallas kernel lies on this path in the reference, so no
+     hand kernel does here (launch counts printed, 0).
 Device times are medians per call between back-to-back calls queued
 behind a device sleep (g4s_tpu_torch.obs.timings.device_ms); "cold" times
 flush L2 before each call, outside its event pair. Each phase
@@ -321,6 +357,33 @@ CANTERA_WINDOW = 40
 # process moved the full run's tau by up to 4.5e-12 on an H100; the
 # multichip driver's NTC check reruns whole cases, phase 17)
 CANTERA_REPEAT_TOL = 1e-10
+# Cantera's 1-D flames (phase 18) at phase 13's mechanism: the burner
+# flame and its march (the reference test's H2 settings, a prevaporized
+# 400 K stoichiometric n-dodecane/air inlet), the free flame's points,
+# width and march times, the points of the flames checked without a march
+# (the multicomponent Jacobian's host side grows with them: 3 (K+1)
+# tangents per point), the Newton iterations and the profiled window; f64
+# card against host CPU relative to each output's largest entry. The
+# march times are cut from the reference test's (burner 0.02 s, free
+# flame 4 ms and 8 ms) to fit the phase's 110 s: at 100 species the BDF
+# steps through the initial ramp's ignition at 1e-9 to 1e-8 s, 0.088 s of
+# wall each on an H100 (2,500 steps reached 1.97e-5 s of the burner's
+# march in 218.7 s), so neither flame reaches its steady state here
+FLAME_BURNER = dict(n_points=32, width=0.01, mdot=0.08, T_burner=400.0)
+FLAME_MARCH = dict(t_end=1e-6, rtol=1e-5, atol=1e-8)
+FLAME_FREE_POINTS = 24
+FLAME_FREE_WIDTH = 0.006
+FLAME_FREE_MARCH = dict(t_ignite=1e-8, t_inner=2e-8)
+FLAME_MULTI_POINTS = 4
+FLAME_CHECK_POINTS = 8
+FLAME_NEWTON_ITERS = 3
+FLAME_WINDOW = 10
+FLAME_REPEAT_STEPS = 50
+FLAME_TOL = 1e-11
+FLAME_EQ_TOL = 1e-10
+FLAME_COVERAGE_TOL = 1e-9
+FLAME_T_MARGIN = 5.0
+FLAME_HOST_TIMEOUT = 600
 # the rest of regional CitcomS (phase 14): multigrid, the thermochemical
 # step and one step of each other branch, f64 on the card against the host
 # CPU relative to each field's largest magnitude; multigrid's initial vrms
@@ -635,7 +698,11 @@ def _synthetic_mechanism_yaml(path, *, nspec: int, nrxn: int,
     Redlich-Kwong a and b come from critical constants by the RK relations
     (a = 0.42748 R^2 Tc^2.5 / Pc, b = 0.08664 R Tc / Pc): published ones
     where the table has them (n-dodecane: Tc 658 K, Pc 18.2 bar), else Tc
-    and Pc drawn from `seed` in a range that grows with the heavy atoms."""
+    and Pc drawn from `seed` in a range that grows with the heavy atoms.
+    Each species' `transport:` block takes its Lennard-Jones well depth
+    and diameter from the same Tc and Pc (Bird-Stewart-Lightfoot) and its
+    geometry from its atom count; it draws nothing from `seed`, so every
+    field a mechanism loader reads is as without it."""
     import numpy as np
 
     R = 8.314462618
@@ -778,6 +845,19 @@ def _synthetic_mechanism_yaml(path, *, nspec: int, nrxn: int,
                   "  equation-of-state:",
                   f"    model: Redlich-Kwong",
                   f"    a: {a_rk:.10e}", f"    b: {b_rk:.10e}"]
+        # Lennard-Jones parameters from the same critical constants by
+        # the Bird-Stewart-Lightfoot correlations (eps/k = 0.77 Tc,
+        # sigma = 2.44 (Tc/Pc)^(1/3) A with Pc in atm); dipole,
+        # polarizability and rotational relaxation at load_transport's
+        # defaults (0, 0, 1)
+        atoms = sum(comp.values())
+        geometry = ("atom" if atoms == 1 else "linear" if atoms == 2
+                    else "nonlinear")
+        sigma = 2.44 * (tc / (pc / 101325.0)) ** (1.0 / 3.0)
+        lines += ["  transport:", f"    model: gas",
+                  f"    geometry: {geometry}",
+                  f"    well-depth: {0.77 * tc:.10e}",
+                  f"    diameter: {sigma:.10e}"]
 
     # ---- reactions ----
     effs_all = {"h2": 2.5, "h2o": 12.0, "co": 1.9, "co2": 3.8, "ar": 0.7,
@@ -1066,6 +1146,131 @@ def _synthetic_mechanism_yaml(path, *, nspec: int, nrxn: int,
     return {"nspec": nspec, "nrxn": len(chosen),
             "n_falloff": n_falloff, "n_three_body": n_three_body,
             "candidates": len(cands)}
+
+
+# the synthetic interface (phase 18): surface species as name, composition,
+# Hf298 kJ/mol, S298 J/mol/K (Pt(111) adsorbate values of the size
+# published Pt mechanisms give)
+_SYN_SURF = [
+    ("pt(s)", {"Pt": 1}, 0.0, 0.0),
+    ("h(s)", {"H": 1, "Pt": 1}, -32.0, 40.0),
+    ("o(s)", {"O": 1, "Pt": 1}, -220.0, 35.0),
+    ("oh(s)", {"O": 1, "H": 1, "Pt": 1}, -190.0, 60.0),
+    ("h2o(s)", {"H": 2, "O": 1, "Pt": 1}, -290.0, 80.0),
+    ("co(s)", {"C": 1, "O": 1, "Pt": 1}, -250.0, 60.0),
+    ("co2(s)", {"C": 1, "O": 2, "Pt": 1}, -400.0, 90.0),
+    ("c(s)", {"C": 1, "Pt": 1}, 50.0, 10.0),
+    ("hco(s)", {"H": 1, "C": 1, "O": 1, "Pt": 1}, -170.0, 70.0),
+    ("ch2o(s)", {"C": 1, "H": 2, "O": 1, "Pt": 1}, -160.0, 85.0),
+    ("ho2(s)", {"H": 1, "O": 2, "Pt": 1}, -95.0, 75.0),
+    ("o2(s)", {"O": 2, "Pt": 1}, -60.0, 70.0),
+]
+
+
+def _synthetic_interface_yaml(path, *, seed: int) -> dict:
+    """Write a Cantera-format ideal-surface phase on Pt over the gas
+    species of _synthetic_mechanism_yaml (h, o2, oh, h2o, ho2, co, co2,
+    hco and ch2o, all in its 15-species and its 100-species instance) and
+    return its counts. It has the size of Cantera's ptcombust.yaml (12
+    surface species, 24 reactions; that file is not in the repository):
+    sticking adsorptions, desorptions with coverage-dependent activation
+    energies, one adsorption with a coverage exponent m, and surface
+    reactions, each balanced in every element and in sites. Thermo: NASA7
+    with a constant cp/R of 1.0-3.0 and h, s at 298.15 K from _SYN_SURF;
+    Arrhenius A, b and Ea drawn from `seed` inside the ranges published Pt
+    mechanisms give each class; site density 2.7063e-9 mol/cm^2."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    R = 8.314462618
+    names = [s[0] for s in _SYN_SURF]
+
+    def u(lo, hi):
+        return float(rng.uniform(lo, hi))
+
+    lines = ["description: >-",
+             f"  Synthetic Pt interface (seed {seed}), see",
+             "  chip_smoke._synthetic_interface_yaml.",
+             "units: {length: cm, quantity: mol, "
+             "activation-energy: kJ/mol}",
+             "phases:",
+             "- name: pt_surf", "  thermo: ideal-surface",
+             "  elements: [Pt, H, O, C]",
+             f"  species: [{', '.join(names)}]",
+             "  kinetics: surface", "  site-density: 2.7063e-09",
+             "species:"]
+    for name, comp, hf, s in _SYN_SURF:
+        cp = round(u(1.0, 3.0), 6)
+        a5 = hf * 1000.0 / R - cp * 298.15
+        a6 = s / R - cp * np.log(298.15)
+        row = "[" + ", ".join(f"{v:.12e}" for v in
+                              (cp, 0.0, 0.0, 0.0, 0.0, a5, a6)) + "]"
+        lines += [f"- name: {name}",
+                  "  composition: {" + ", ".join(
+                      f"{k}: {v}" for k, v in comp.items()) + "}",
+                  "  sites: 1", "  thermo:", "    model: NASA7",
+                  "    temperature-ranges: [300.0, 1000.0, 3000.0]",
+                  "    data:", f"    - {row}", f"    - {row}"]
+    lines.append("reactions:")
+
+    def stick(eq, gamma, extra=()):
+        lines.extend([f"- equation: {eq}",
+                      f"  sticking-coefficient: {{A: {gamma:.6e}, b: 0.0, "
+                      f"Ea: 0.0}}", *extra])
+
+    def arr(eq, A, b, Ea, extra=()):
+        lines.extend([f"- equation: {eq}",
+                      f"  rate-constant: {{A: {A:.6e}, b: {b:.4f}, "
+                      f"Ea: {Ea:.4f}}}", *extra])
+
+    def cov(sp, E, m=0.0):
+        return ["  coverage-dependencies:",
+                f"    {sp}: {{a: 0.0, m: {m}, E: {E:.4f}}}"]
+
+    # adsorption (sticking coefficients)
+    stick("h + pt(s) => h(s)", u(0.5, 1.0), cov("pt(s)", 0.0, -1.0))
+    stick("o2 + 2 pt(s) => 2 o(s)", u(0.02, 0.08))
+    stick("oh + pt(s) => oh(s)", u(0.5, 1.0))
+    stick("h2o + pt(s) => h2o(s)", u(0.5, 0.9))
+    stick("co + pt(s) => co(s)", u(0.5, 0.9))
+    stick("co2 + pt(s) => co2(s)", u(0.005, 0.02))
+    stick("ch2o + pt(s) => ch2o(s)", u(0.1, 0.5))
+    stick("ho2 + pt(s) => ho2(s)", u(0.1, 0.5))
+    # desorption (first order in the adsorbate, 1/s)
+    arr("2 o(s) => o2 + 2 pt(s)", 10 ** u(20.5, 21.5), 0.0, u(200.0, 225.0),
+        cov("o(s)", u(-70.0, -50.0)))
+    arr("h2o(s) => h2o + pt(s)", 10 ** u(12.5, 13.5), 0.0, u(38.0, 42.0))
+    arr("oh(s) => oh + pt(s)", 10 ** u(12.5, 13.5), 0.0, u(190.0, 200.0))
+    arr("co(s) => co + pt(s)", 10 ** u(12.5, 13.5), 0.0, u(120.0, 130.0),
+        cov("co(s)", u(-40.0, -25.0)))
+    arr("co2(s) => co2 + pt(s)", 10 ** u(12.5, 13.5), 0.0, u(18.0, 22.0))
+    arr("h(s) => h + pt(s)", 10 ** u(12.5, 13.5), 0.0, u(240.0, 260.0),
+        cov("h(s)", u(-8.0, -4.0)))
+    # surface reactions (cm^2/mol/s)
+    arr("h(s) + o(s) <=> oh(s) + pt(s)", 10 ** u(21.0, 22.0), 0.0,
+        u(10.0, 14.0))
+    arr("h(s) + oh(s) <=> h2o(s) + pt(s)", 10 ** u(21.0, 22.0), 0.0,
+        u(15.0, 19.0))
+    arr("oh(s) + oh(s) <=> h2o(s) + o(s)", 10 ** u(21.0, 22.0), 0.0,
+        u(46.0, 50.0))
+    arr("co(s) + o(s) => co2(s) + pt(s)", 10 ** u(21.0, 22.0), 0.0,
+        u(100.0, 110.0), cov("co(s)", u(-36.0, -30.0)))
+    arr("c(s) + o(s) => co(s) + pt(s)", 10 ** u(21.0, 22.0), 0.0,
+        u(60.0, 64.0))
+    arr("co(s) + pt(s) => c(s) + o(s)", 10 ** u(17.5, 18.5), 0.0,
+        u(180.0, 190.0))
+    arr("ch2o(s) + pt(s) => hco(s) + h(s)", 10 ** u(20.5, 21.5), 0.0,
+        u(20.0, 30.0))
+    arr("hco(s) + pt(s) => co(s) + h(s)", 10 ** u(20.5, 21.5), 0.0,
+        u(0.0, 10.0))
+    arr("ho2(s) + pt(s) => o(s) + oh(s)", 10 ** u(20.5, 21.5), 0.0,
+        u(10.0, 20.0))
+    arr("o2(s) + pt(s) <=> o(s) + o(s)", 10 ** u(20.5, 21.5), 0.0,
+        u(20.0, 30.0))
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return {"species": len(names),
+            "reactions": sum(l.startswith("- equation") for l in lines)}
 
 
 def _erdos_renyi(n: int, avg_deg: int, seed: int):
@@ -2274,7 +2479,8 @@ def _cantera_shock_tube(dev) -> None:
     CANTERA_U_TOL of their initial values, a temperature rise of at least
     CANTERA_T_RISE, and the RK tau apart from the IG tau. (2b) The RK
     advance to tau/2 run twice: the states within CANTERA_REPEAT_TOL. No hand kernel lies on this path (launch counts
-    printed, 0)."""
+    printed, 0). Returns the ideal-gas reactor and its final state, for
+    phase 18."""
     import tempfile
 
     import numpy as np
@@ -2470,6 +2676,456 @@ def _cantera_shock_tube(dev) -> None:
          tau_RG_over_IG=f"{out['tau_RG'] / out['tau_IG']:.6f}",
          cpu_run_single_s=f"{cpu_s:.3f}",
          cpu_run_waited_s=f"{cpu_wait_s:.3f}",
+         hand_kernel_launches=sum(mod.LAUNCHES for mod in launch_mods))
+    return bench.r_ig, out["result_IG"].y
+
+
+def _flame_inlets(mech):
+    """Phase 18's inlets as mass fractions: stoichiometric n-dodecane/air,
+    and the counterflow's fuel (30 % n-dodecane in N2 by mass) and air."""
+    import numpy as np
+    W = np.asarray(mech.mol_weights)
+    X = np.zeros(mech.nspec)
+    for name, v in (("c12h26", 1.0), ("o2", 18.5), ("n2", 18.5 * 3.76)):
+        X[mech.species_index(name)] = v
+    Yf = np.zeros(mech.nspec)
+    Yf[mech.species_index("c12h26")] = 0.3
+    Yf[mech.species_index("n2")] = 0.7
+    Yo = np.zeros(mech.nspec)
+    Yo[mech.species_index("o2")] = 0.233
+    Yo[mech.species_index("n2")] = 0.767
+    return X * W / (X * W).sum(), Yf, Yo
+
+
+def _flame_make(kind: str, mech, tr, device):
+    """One of phase 18's flames on `device` and its initial profile."""
+    from g4s_tpu_torch.models.cantera import flame
+    Y, Yf, Yo = _flame_inlets(mech)
+    if kind == "burner":
+        f = flame.BurnerFlame(mech, tr, **FLAME_BURNER, device=device)
+        return f, f.initial_profile(Y)
+    if kind == "burner_multi_soret":
+        f = flame.BurnerFlame(mech, tr, **{**FLAME_BURNER,
+                                           "n_points": FLAME_MULTI_POINTS},
+                              transport="multi", soret=True, device=device)
+        return f, f.initial_profile(Y)
+    if kind == "counterflow":
+        f = flame.CounterflowDiffusionFlame(
+            mech, tr, n_points=FLAME_CHECK_POINTS, width=0.02, T_fuel=400.0,
+            device=device)
+        return f, f.initial_profile(Yf, Yo)
+    if kind == "jet":
+        f = flame.ImpingingJet(mech, tr, n_points=FLAME_CHECK_POINTS,
+                               width=0.01, T_inlet=400.0, device=device)
+        return f, f.initial_profile(Y)
+    raise ValueError(kind)
+
+
+def _flame_transport(mech, tr, mech_rk, tr_rk, device) -> dict:
+    """Phase 18's transport outputs as numpy arrays, computed on `device`:
+    the mixture-averaged, L-matrix and multicomponent properties at every
+    point of the burner's initial profile, Stefan-Maxwell velocities on a
+    seeded state with every species present (at the profile's absent
+    species, floored at 1e-16, its system is singular: a 1e-16 change of
+    input moves them by 25 %), the high-pressure model on the
+    Redlich-Kwong phase at 1500 K and 40 atm, and DustyGas."""
+    import numpy as np
+    import torch
+    from torch.func import vmap
+    from g4s_tpu_torch.models.cantera import multi_transport as mt
+    from g4s_tpu_torch.models.cantera import transport as tp
+    from g4s_tpu_torch.models.cantera import transport_models as tm
+    from g4s_tpu_torch.models.cantera.thermo import cp0_R
+    f, s = _flame_make("burner", mech, tr, device)
+    K, P = mech.nspec, f.P
+    s = s.reshape(f.n, K + 1)
+    T = s[:, 0]
+    x = s[:, 1:] / f.W
+    x = x / x.sum(dim=1, keepdim=True)
+    cp = vmap(lambda t: cp0_R(mech, t))(T)
+    rng = np.random.default_rng(CANTERA_SEED)
+    r = torch.as_tensor(rng.random((f.n, K)), dtype=x.dtype, device=device)
+    xs = 0.9 * x + 0.1 * r / r.sum(dim=1, keepdim=True)
+    gx = torch.gradient(xs, spacing=(f.z,), dim=0)[0]
+    out = {
+        "mixture_viscosity": vmap(lambda t, xx: tp.mixture_viscosity(
+            mech, tr, t, xx))(T, x),
+        "thermal_conductivity": vmap(lambda t, xx, c: tp.thermal_conductivity(
+            mech, tr, t, xx, c))(T, x, cp),
+        "mixture_diffusion": vmap(lambda t, xx: tp.mixture_diffusion_coeffs(
+            mech, tr, t, P, xx))(T, x),
+        "stefan_maxwell": vmap(lambda t, xx, g: tp.stefan_maxwell_velocities(
+            mech, tr, t, P, xx, g))(T, xs, gx),
+        "multicomponent_conductivity": vmap(
+            lambda t, xx, c: mt.multicomponent_conductivity(
+                mech, tr, t, xx, c))(T, x, cp),
+        "thermal_diffusion": vmap(lambda t, xx, c: mt.thermal_diff_coeffs(
+            mech, tr, t, xx, c))(T, x, cp),
+        "multicomponent_diffusion": vmap(
+            lambda t, xx: mt.multicomponent_diff_coeffs(
+                mech, tr, t, P, xx))(T, x)}
+    out = {k: v.cpu().numpy() for k, v in out.items()}
+    x_in = x[0].cpu().numpy()
+    hp = tm.HighPressureGasTransport(mech_rk, tr_rk, device=device)
+    T_hp, P_hp = 1500.0, 40 * 101325.0
+    cp_hp = cp0_R(mech_rk, torch.as_tensor(
+        T_hp, dtype=torch.float64, device=device)).cpu().numpy()
+    out["hp_binary_diffusion"] = hp.binary_diff_coeffs(T_hp, P_hp, x_in)
+    out["hp_viscosity"] = np.asarray(hp.viscosity(T_hp, P_hp, x_in))
+    out["hp_conductivity"] = np.asarray(
+        hp.thermal_conductivity(T_hp, P_hp, x_in, cp_hp))
+    dg = tm.DustyGas(mech, tr, device=device)
+    Y2 = xs[-1].cpu().numpy() * mech.mol_weights
+    out["dusty_diffusion"] = dg.multi_diff_coeffs(
+        T_hp, 101325.0, x_in).cpu().numpy()
+    out["dusty_fluxes"] = dg.molar_fluxes(
+        600.0, 650.0, 1.2, 1.0, _flame_inlets(mech)[0], Y2 / Y2.sum(),
+        1e-3).cpu().numpy()
+    return out
+
+
+def _flame_surface(mech, surf_path: str, device):
+    """advance_coverages of phase 18's interface for 1 ms at 900 K in a
+    lean n-dodecane/air/H2O/CO gas, from half Pt and half H coverage, on
+    `device`: (coverages as numpy, BDF result)."""
+    import numpy as np
+    from g4s_tpu_torch.models.cantera import surface
+    ik = surface.load_interface(surf_path, mech, device=device)
+    X = np.zeros(mech.nspec)
+    for name, v in (("c12h26", 0.01), ("o2", 0.2), ("h2o", 0.05),
+                    ("co", 0.02), ("n2", 0.72)):
+        X[mech.species_index(name)] = v
+    conc = X / X.sum() * 101325.0 / (8.314462618 * 900.0)
+    th0 = np.zeros(ik.surf.nspec)
+    th0[ik.surf.species_index("pt(s)")] = 0.5
+    th0[ik.surf.species_index("h(s)")] = 0.5
+    th, res = surface.advance_coverages(ik, mech, 900.0, conc, th0, 1e-3)
+    return th.cpu().numpy(), res
+
+
+def _flame_host(task: str, path: str, surf_path: str, state=None) -> dict:
+    """Phase 18's host-CPU side of one check, in a process of its own with
+    one torch thread (outputs as numpy, and the wall s it took): the
+    transport set, the interface's coverages, or a flame's RHS and
+    Jacobian at `state` (its initial profile when None)."""
+    import torch
+    torch.set_num_threads(1)
+    from g4s_tpu_torch.models.cantera import load_mechanism, load_transport
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    mech = load_mechanism(path, "nDodecane_IG")
+    tr = load_transport(path, mech)
+    if task == "transport":
+        mech_rk = load_mechanism(path, "nDodecane_RK")
+        out = _flame_transport(mech, tr, mech_rk,
+                               load_transport(path, mech_rk), cpu)
+    elif task == "surface":
+        th, res = _flame_surface(mech, surf_path, cpu)
+        out = {"theta": th, "steps": res.steps}
+    else:
+        f, y = _flame_make(task, mech, tr, cpu)
+        if state is not None:
+            y = torch.from_numpy(state)
+        out = {"rhs": f.rhs(0.0, y).numpy(),
+               "jac": f.jacobian(0.0, y).numpy()}
+    out["host_s"] = time.perf_counter() - t0
+    return out
+
+
+def _cantera_flames(dev, ig_reactor, ig_final) -> None:
+    """Phase 18 (see the module docstring): Cantera's 1-D flames,
+    equilibrium, transport, surface kinetics and SolutionArray at phase
+    13's mechanism on the card, each check against the host CPU, whose
+    side runs in spawned one-thread processes started first (the host
+    CPU's LAPACK is called one thread at a time). `ig_reactor` and
+    `ig_final` are phase 13's ideal-gas reactor and final state."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from g4s_tpu_torch.models.cantera import (R_GAS, SolutionArray,
+                                              equilibrium, flame,
+                                              load_mechanism, load_transport)
+    from g4s_tpu_torch.models.cantera.thermo import h0_RT
+    from g4s_tpu_torch.obs.timings import device_activities
+    from g4s_tpu_torch.ops import bwell_spmv, odeint, route, segment, \
+        wsell_spmv
+
+    launch_mods = (route, wsell_spmv, bwell_spmv, segment)
+    for mod in launch_mods:
+        mod.LAUNCHES = 0
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    tmp = tempfile.TemporaryDirectory()
+    path = os.path.join(tmp.name, "ndodecane_synthetic.yaml")
+    surf_path = os.path.join(tmp.name, "pt_synthetic.yaml")
+    _synthetic_mechanism_yaml(path, seed=CANTERA_SEED, **CANTERA_COUNTS)
+    surf_counts = _synthetic_interface_yaml(surf_path, seed=CANTERA_SEED)
+    pool = multiprocessing.get_context("spawn").Pool(4)
+    try:
+        host = {task: pool.apply_async(_flame_host, (task, path, surf_path))
+                for task in ("burner", "burner_multi_soret", "counterflow",
+                             "jet", "transport", "surface")}
+
+        def got(task):
+            return host[task].get(timeout=FLAME_HOST_TIMEOUT)
+
+        mech = load_mechanism(path, "nDodecane_IG")
+        tr = load_transport(path, mech)
+        mech_rk = load_mechanism(path, "nDodecane_RK")
+        tr_rk = load_transport(path, mech_rk)
+        K = mech.nspec
+        _check(K == CANTERA_COUNTS["nspec"] and surf_counts == {
+            "species": 12, "reactions": 24},
+            f"phase 18 inputs: {K} species, interface {surf_counts}")
+        Y_in = _flame_inlets(mech)[0]
+        W = np.asarray(mech.mol_weights)
+        x_in = Y_in / W / (Y_in / W).sum()
+
+        # ---- 2: equilibrium of the inlet (both sides in this process: the
+        # element-potential Newton is numpy, its potentials on the device) --
+        T_u = FLAME_BURNER["T_burner"]
+        h_in = float(x_in @ (h0_RT(mech, torch.as_tensor(
+            T_u, dtype=torch.float64)).numpy() * R_GAS * T_u)) \
+            / float(x_in @ W)
+        t0 = time.perf_counter()
+        T_ad, x_ad = equilibrium.equilibrate_hp(mech, h_in, 101325.0, x_in,
+                                                device=dev)
+        hp_s = time.perf_counter() - t0
+        T_ad_c, x_ad_c = equilibrium.equilibrate_hp(mech, h_in, 101325.0,
+                                                    x_in, device=cpu)
+        A, _ = equilibrium.element_matrix(mech)
+        b0, b1 = A.T @ x_in, A.T @ x_ad
+        on = b0 > 0
+        ratio = b1[on] / b0[on]
+        el_err = float(np.abs(ratio / ratio[0] - 1.0).max())
+        t_err = abs(T_ad - T_ad_c) / T_ad_c
+        x_err = _rel_err(x_ad, x_ad_c)
+        _check(el_err <= FLAME_EQ_TOL and t_err <= FLAME_EQ_TOL
+               and x_err <= FLAME_EQ_TOL,
+               f"equilibrate_hp: elements {el_err}, T {T_ad} card "
+               f"{T_ad_c} host, x {x_err}")
+        T_ig = float(ig_final[0])
+        t0 = time.perf_counter()
+        T_uv, _ = equilibrium.equilibrium_temperature_uv(ig_reactor,
+                                                         ig_final)
+        uv_s = time.perf_counter() - t0
+        _check(np.isfinite(T_uv), f"equilibrium_temperature_uv: {T_uv}")
+        _say("18-cantera-equilibrium", T_ad=f"{T_ad:.6f}",
+             element_rel_err=f"{el_err:.3g}", T_rel_err=f"{t_err:.3g}",
+             x_rel_err=f"{x_err:.3g}", tol=FLAME_EQ_TOL,
+             hp_wall_s=f"{hp_s:.3f}", ig_T_end=f"{T_ig:.4f}",
+             ig_T_uv_equilibrium=f"{T_uv:.4f}", uv_wall_s=f"{uv_s:.3f}")
+
+        # ---- 3: the burner flame's march --------------------------------
+        card, s0 = _flame_make("burner", mech, tr, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res, reduction = card.solve(s0, **FLAME_MARCH)
+        torch.cuda.synchronize()
+        march_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        y1 = res.y
+        host["burner_marched"] = pool.apply_async(
+            _flame_host, ("burner", path, surf_path, y1.cpu().numpy()))
+        T_prof, Y_prof = card.unpack(y1)
+        _check(res.success and np.isfinite(T_prof).all()
+               and T_prof[-1] <= T_ad + FLAME_T_MARGIN,
+               f"burner march: success {res.success}, downstream T "
+               f"{T_prof[-1]} against T_ad {T_ad}")
+        jac_ms = _sync_ms(lambda: card.jacobian(0.0, y1), reps=3)
+        rhs_ms = _sync_ms(lambda: card.rhs(0.0, y1), reps=5)
+        # two card runs of the first steps, bitwise
+        runs = [odeint.bdf_solve(card.rhs, s0, 0.0, FLAME_MARCH["t_end"],
+                                 rtol=FLAME_MARCH["rtol"],
+                                 atol=FLAME_MARCH["atol"],
+                                 max_steps=FLAME_REPEAT_STEPS,
+                                 jac=card.jacobian) for _ in range(2)]
+        bitwise = (torch.equal(runs[0].y, runs[1].y)
+                   and (runs[0].steps, runs[0].n_fev, runs[0].n_jev)
+                   == (runs[1].steps, runs[1].n_fev, runs[1].n_jev))
+        _check(bitwise, "burner march: two card runs of the first "
+               f"{FLAME_REPEAT_STEPS} steps differ")
+        # a profiled window of steps from the marched state, the solver's
+        # set-up (one RHS, one Jacobian, one LU) taken out
+        n_state = y1.shape[0]
+        eye = torch.eye(n_state, dtype=y1.dtype, device=dev)
+        Jm = card.jacobian(0.0, y1)
+
+        def lu():
+            LU, piv, _ = torch.linalg.lu_factor_ex(eye - 1e-6 * Jm)
+            return torch.linalg.lu_solve(LU, piv, y1[:, None])
+
+        def window():
+            return odeint.bdf_solve(card.rhs, y1, 0.0, 1.0,
+                                    rtol=FLAME_MARCH["rtol"],
+                                    atol=FLAME_MARCH["atol"],
+                                    max_steps=FLAME_WINDOW,
+                                    jac=card.jacobian)
+
+        parts = {}
+        for part, fn in (("rhs", lambda: card.rhs(0.0, y1)),
+                         ("jac", lambda: card.jacobian(0.0, y1)),
+                         ("lu", lu)):
+            acts = device_activities(fn)
+            parts[part] = (len(acts), sum(us for _, us in acts) / 1e3)
+        acts = device_activities(window)
+        t0 = time.perf_counter()
+        res_w = window()
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+        k_step = (len(acts) - sum(v[0] for v in parts.values())) \
+            / res_w.steps
+        busy_step = (sum(us for _, us in acts) / 1e3
+                     - sum(v[1] for v in parts.values())) / res_w.steps
+        wall_step = march_s / res.steps * 1e3
+        _say("18-cantera-burner-march", n=card.n, species=K,
+             unknowns=n_state, t_end=FLAME_MARCH["t_end"],
+             rtol=FLAME_MARCH["rtol"], steps=res.steps, n_fev=res.n_fev,
+             n_jev=res.n_jev, wall_s=f"{march_s:.3f}",
+             s_per_step=f"{march_s / res.steps:.4f}",
+             residual_reduction=f"{reduction:.4g}",
+             reduction_under_0_05=reduction < 0.05,
+             T_downstream=f"{T_prof[-1]:.3f}", T_ad=f"{T_ad:.3f}",
+             T_max=f"{T_prof.max():.3f}", peak_gb=f"{peak_gb:.3f}",
+             jac_ms=f"{jac_ms:.3f}", rhs_ms=f"{rhs_ms:.3f}",
+             first_steps_bitwise_equal=bitwise)
+        _say("18-cantera-burner-step", window_steps=res_w.steps,
+             window_wall_s=f"{window_s:.3f}",
+             rhs_kernels=parts["rhs"][0],
+             rhs_busy_ms=f"{parts['rhs'][1]:.4f}",
+             jac_kernels=parts["jac"][0],
+             jac_busy_ms=f"{parts['jac'][1]:.4f}",
+             lu_kernels=parts["lu"][0], lu_busy_ms=f"{parts['lu'][1]:.4f}",
+             device_kernels_per_step=f"{k_step:.1f}",
+             device_busy_ms_per_step=f"{busy_step:.4f}",
+             march_wall_ms_per_step=f"{wall_step:.4f}",
+             device_idle_share=f"{max(0.0, 1 - busy_step / wall_step):.3f}")
+
+        # ---- 4: the free flame's eigenvalue ------------------------------
+        free = flame.FreeFlame(mech, tr, n_points=FLAME_FREE_POINTS,
+                               width=FLAME_FREE_WIDTH, T_inlet=T_u,
+                               device=dev)
+        sf = free.initial_profile(Y_in, mdot_guess=0.4)
+        t0 = time.perf_counter()
+        y_core, mdot, err_cells = flame.solve_flame_speed(
+            free, sf, iters=3, **FLAME_FREE_MARCH)
+        torch.cuda.synchronize()
+        speed_s = time.perf_counter() - t0
+        rho_u = 101325.0 * float(x_in @ W) / (R_GAS * T_u)
+        T_free = y_core.reshape(free.n, -1)[:, 0].cpu().numpy()
+        _check(np.isfinite(T_free).all() and mdot > 0,
+               f"free flame: mdot {mdot}, T finite "
+               f"{np.isfinite(T_free).all()}")
+        # one damped Newton on the anchored system; its host solve timed
+        host_solve = [0.0]
+        solve_fn = flame._newton_linear_solve
+
+        def timed_solve(*a):
+            t = time.perf_counter()
+            try:
+                return solve_fn(*a)
+            finally:
+                host_solve[0] += time.perf_counter() - t
+
+        y0 = torch.cat([free._t([mdot]), y_core])
+        w = flame._flame_weights(free, int(y0.shape[0]))
+        w[0] = 10.0
+        flame._newton_linear_solve = timed_solve
+        try:
+            t0 = time.perf_counter()
+            yn, nrm, ok = flame.damped_newton(
+                flame.anchored_residual(free), y0, weights=w,
+                max_iter=FLAME_NEWTON_ITERS, tol=1e-6,
+                chunk=free.tangent_chunk())
+            torch.cuda.synchronize()
+            newton_s = time.perf_counter() - t0
+        finally:
+            flame._newton_linear_solve = solve_fn
+        _check(np.isfinite(nrm), f"damped_newton: norm {nrm}")
+        _say("18-cantera-free-flame", n=free.n, unknowns=int(y0.shape[0]),
+             **FLAME_FREE_MARCH,
+             mdot=f"{mdot:.6f}", Su=f"{mdot / rho_u:.6f}",
+             position_err_cells=f"{err_cells:.4f}",
+             T_max=f"{T_free.max():.3f}", speed_wall_s=f"{speed_s:.3f}",
+             newton_iters=FLAME_NEWTON_ITERS, newton_norm=f"{nrm:.6g}",
+             newton_converged=ok, newton_wall_s=f"{newton_s:.3f}",
+             host_solve_s=f"{host_solve[0]:.3f}",
+             host_solve_share=f"{host_solve[0] / newton_s:.3f}")
+
+        # ---- 2 (cont.): SolutionArray over the marched flame's points ----
+        Xp = Y_prof / W
+        sol = SolutionArray(mech, T=T_prof, P=card.P, X=Xp, device=dev)
+        sol_c = SolutionArray(mech, T=T_prof, P=card.P, X=Xp, device=cpu)
+        names = ("density", "cp_mole", "enthalpy_mole", "entropy_mole",
+                 "net_production_rates")
+        sol_err = {k: _rel_err(getattr(sol, k).cpu(), getattr(sol_c, k))
+                   for k in names}
+        sol.equilibrate("TP")
+        sol_c.equilibrate("TP")
+        sol_err["equilibrate_TP"] = _rel_err(sol.X.cpu(), sol_c.X)
+        _check(max(v for k, v in sol_err.items() if k != "equilibrate_TP")
+               <= FLAME_TOL and sol_err["equilibrate_TP"] <= FLAME_EQ_TOL,
+               f"SolutionArray, card against host CPU: {sol_err}")
+        _say("18-cantera-solution-array", states=len(sol),
+             **{k: f"{v:.3g}" for k, v in sol_err.items()},
+             tol=FLAME_TOL, equilibrate_tol=FLAME_EQ_TOL)
+
+        # ---- 1: transport at full width --------------------------------
+        t0 = time.perf_counter()
+        tp_card = _flame_transport(mech, tr, mech_rk, tr_rk, dev)
+        tp_s = time.perf_counter() - t0
+        tp_host = got("transport")
+        tp_err = {k: _rel_err(v, tp_host[k]) for k, v in tp_card.items()}
+        _check(max(tp_err.values()) <= FLAME_TOL,
+               f"transport, card against host CPU: {tp_err}")
+        _say("18-cantera-transport", points=card.n, species=K,
+             **{k: f"{v:.3g}" for k, v in tp_err.items()}, tol=FLAME_TOL,
+             card_wall_s=f"{tp_s:.3f}",
+             host_wall_s=f"{tp_host['host_s']:.3f}")
+
+        # ---- 3, 5: RHS and Jacobians, card against host CPU ---------------
+        flames = {"burner": (card, s0), "burner_marched": (card, y1)}
+        for kind in ("burner_multi_soret", "counterflow", "jet"):
+            flames[kind] = _flame_make(kind, mech, tr, dev)
+        for kind, (f, y) in flames.items():
+            t0 = time.perf_counter()
+            r_c = f.rhs(0.0, y).cpu()
+            j_c = f.jacobian(0.0, y).cpu()
+            card_s = time.perf_counter() - t0
+            h = got(kind)
+            errs = (_rel_err(r_c, h["rhs"]), _rel_err(j_c, h["jac"]))
+            _check(max(errs) <= FLAME_TOL,
+                   f"{kind}: RHS {errs[0]}, Jacobian {errs[1]}, card "
+                   f"against host CPU")
+            _say(f"18-cantera-{kind}", unknowns=int(y.shape[0]),
+                 rhs_rel_err=f"{errs[0]:.3g}", jac_rel_err=f"{errs[1]:.3g}",
+                 tol=FLAME_TOL, card_wall_s=f"{card_s:.3f}",
+                 host_wall_s=f"{h['host_s']:.3f}")
+
+        # ---- 6: the surface ------------------------------------------------
+        t0 = time.perf_counter()
+        th, res_s = _flame_surface(mech, surf_path, dev)
+        surf_s = time.perf_counter() - t0
+        h = got("surface")
+        th_err = float(np.abs(th - h["theta"]).max())
+        sum_err = abs(float(th.sum()) - 1.0)
+        _check(res_s.success and th_err <= FLAME_COVERAGE_TOL
+               and sum_err <= 1e-12,
+               f"advance_coverages: card against host CPU {th_err}, sum "
+               f"{th.sum()}, success {res_s.success}")
+        _say("18-cantera-surface", surface_species=surf_counts["species"],
+             reactions=surf_counts["reactions"], steps=res_s.steps,
+             steps_host=h["steps"], theta_abs_err=f"{th_err:.3g}",
+             tol=FLAME_COVERAGE_TOL, theta_sum_err=f"{sum_err:.3g}",
+             wall_s=f"{surf_s:.3f}", host_wall_s=f"{h['host_s']:.3f}")
+    finally:
+        pool.terminate()
+        pool.join()
+        tmp.cleanup()
+    _say("18-cantera-flames", phase_s=f"{time.perf_counter() - t_phase:.3f}",
          hand_kernel_launches=sum(mod.LAUNCHES for mod in launch_mods))
 
 
@@ -4213,14 +4869,19 @@ def main() -> int:
     _deepmd_train(dev)
 
     laps.append((13, time.perf_counter()))
-    # ---- 13: Cantera's NonIdealShockTube at the dodecane size, with phase
-    # 17's multichip driver running beside it in processes of its own; the
-    # script waits for the driver before phase 14, so that phases 14-16
-    # have the card to themselves ----------------------------------------
+    # ---- 13: Cantera's NonIdealShockTube at the dodecane size, then phase
+    # 18, with phase 17's multi-rank run beside both in processes of its
+    # own; the script waits for that run to end before phase 14, so that
+    # phases 14-16 have the card to themselves ----------------------------
     mc_run = _multichip_start()
     try:
-        _cantera_shock_tube(dev)
-        laps.append(("17_after_13", time.perf_counter()))
+        ig_reactor, ig_final = _cantera_shock_tube(dev)
+        laps.append((18, time.perf_counter()))
+        # ---- 18: Cantera's 1-D flames, equilibrium, transport and
+        # surfaces, in the time phase 13 leaves before phase 17 ends ----
+        _cantera_flames(dev, ig_reactor, ig_final)
+        del ig_reactor, ig_final
+        laps.append(("17_after_18", time.perf_counter()))
         mc_res = _multichip_wait(mc_run)
     finally:
         _multichip_stop(mc_run)

@@ -1,14 +1,19 @@
-"""Cantera's zero-D NonIdealShockTube path (counterpart of
-g4s_tpu/models/cantera): the YAML mechanism loader, NASA7/NASA9/Shomate
-thermo with the Redlich-Kwong and Peng-Robinson real-gas phases,
-mass-action kinetics through the graph engine (mxv/vxm), the constant-
-volume and constant-pressure reactors, reactor networks and the shock-tube
-protocol; the integrator is g4s_tpu_torch.ops.odeint.bdf_solve.
+"""Cantera on the port (counterpart of g4s_tpu/models/cantera): the YAML
+mechanism loader, NASA7/NASA9/Shomate thermo with the Redlich-Kwong and
+Peng-Robinson real-gas phases, mass-action kinetics through the graph
+engine (mxv/vxm), the constant-volume and constant-pressure reactors,
+reactor networks and the shock-tube protocol; equilibrium (element
+potentials, VCS with condensed species, HP and UV), mixture-averaged,
+multicomponent and specialty transport, surface phases and interface
+kinetics, SolutionArray, and the 1-D flames (burner, free, counterflow,
+impinging jet) with their steady solves; the integrator is
+g4s_tpu_torch.ops.odeint.bdf_solve.
 
-Not ported yet: equilibrium, transport, flames, surfaces, electrolytes and
-the other phases (ROADMAP.md queue 1, "The rest of Cantera"); the banded
-BDF, sensitivities, the DAE solver and the batched and sharded NTC sweeps
-(ROADMAP.md queue 1, "The Cantera integrator tail").
+Not ported yet: electrolytes and the other phase models (water, HKFT,
+HMW, condensed, plasma, pure fluids, VCS multiphase; ROADMAP.md queue 1,
+"The Cantera phase models"); the banded BDF, sensitivities, the DAE
+solver and the batched NTC sweep (ROADMAP.md queue 1, "The Cantera
+integrator tail").
 """
 from g4s_tpu_torch.models.cantera.mech import (  # noqa: F401
     Mechanism, load_mechanism, mechanism_from_reference, R_GAS, P_REF,
@@ -30,3 +35,12 @@ from g4s_tpu_torch.models.cantera.network import (  # noqa: F401
 from g4s_tpu_torch.models.cantera.shock_tube import (  # noqa: F401
     ShockTubeBenchmark, ignition_delay, stoich_mixture, NTC_TEMPERATURES,
 )
+from g4s_tpu_torch.models.cantera.equilibrium import equilibrate_tp  # noqa: F401
+from g4s_tpu_torch.models.cantera.solution_array import SolutionArray  # noqa: F401
+from g4s_tpu_torch.models.cantera.transport import (  # noqa: F401
+    load_transport, mixture_viscosity, thermal_conductivity,
+    mixture_diffusion_coeffs,
+)
+from g4s_tpu_torch.models.cantera.surface import (  # noqa: F401
+    InterfaceKinetics, SurfacePhase, load_interface,
+    net_production_rates_interface, advance_coverages)

@@ -534,6 +534,90 @@ def test_cantera_rhs_and_jacobian_on_cuda_match_cpu(cuda, tmp_path):
                 <= 1e-11
 
 
+def _small_flames(tmp_path, device):
+    """Port flames on chip_smoke.py's small synthetic mechanism (ideal-gas
+    phase, transport blocks), on `device`, and a stoichiometric
+    n-dodecane/air inlet."""
+    from chip_smoke import _synthetic_mechanism_yaml
+    from g4s_tpu_torch.models.cantera import load_mechanism, load_transport
+    from g4s_tpu_torch.models.cantera import flame
+    path = str(tmp_path / "small.yaml")
+    _synthetic_mechanism_yaml(path, nspec=15, nrxn=30, n_falloff=2,
+                              n_three_body=2, seed=0)
+    mech = load_mechanism(path, "nDodecane_IG")
+    tr = load_transport(path, mech)
+    X = np.zeros(mech.nspec)
+    X[mech.species_index("c12h26")] = 1.0
+    X[mech.species_index("o2")] = 18.5
+    X[mech.species_index("n2")] = 69.56
+    Y = X * mech.mol_weights / (X * mech.mol_weights).sum()
+    return mech, tr, Y, [
+        flame.BurnerFlame(mech, tr, n_points=8, width=0.01, mdot=0.08,
+                          T_burner=400.0, device=device),
+        flame.BurnerFlame(mech, tr, n_points=8, width=0.01, mdot=0.08,
+                          T_burner=400.0, transport="multi", soret=True,
+                          device=device),
+        flame.FreeFlame(mech, tr, n_points=8, width=0.006, T_inlet=400.0,
+                        device=device),
+        flame.ImpingingJet(mech, tr, n_points=8, width=0.01, T_inlet=400.0,
+                           device=device)]
+
+
+def test_flame_rhs_and_jacobian_on_cuda_match_cpu(cuda, tmp_path):
+    """The burner flame (mixture-averaged, and multicomponent with Soret),
+    the free flame and the impinging jet on the small synthetic mechanism:
+    RHS and the Jacobian the march uses (coloured block tridiagonal for
+    the burner, chunked columns for the others) at the initial profile,
+    the card within 1e-11 of the host CPU's largest entry, f64."""
+    _, _, Y, card = _small_flames(tmp_path, cuda)
+    _, _, _, host = _small_flames(tmp_path, "cpu")
+
+    def rel(a, b):
+        return float((a.cpu() - b).abs().max() / b.abs().max())
+
+    for fc, fh in zip(card, host):
+        y = fh.initial_profile(Y)
+        yc = fc.initial_profile(Y)
+        assert torch.equal(yc.cpu(), y)
+        assert rel(fc.rhs(0.0, yc), fh.rhs(0.0, y)) <= 1e-11
+        assert rel(fc.jacobian(0.0, yc), fh.jacobian(0.0, y)) <= 1e-11
+
+
+def test_equilibrium_on_cuda_matches_cpu(cuda, tmp_path):
+    """equilibrate_tp and equilibrate_hp of the stoichiometric inlet and
+    advance_coverages on chip_smoke.py's synthetic interface, the card
+    within 1e-10 (coverages 1e-9) of the host CPU."""
+    from chip_smoke import _synthetic_interface_yaml
+    from g4s_tpu_torch.models.cantera import equilibrium, surface
+    mech, _, Y, _ = _small_flames(tmp_path, "cpu")
+    x0 = Y / mech.mol_weights
+    for T in (1200.0, 2600.0):
+        a = equilibrium.equilibrate_tp(mech, T, 101325.0, x0, device=cuda)
+        b = equilibrium.equilibrate_tp(mech, T, 101325.0, x0, device="cpu")
+        assert np.abs(a - b).max() <= 1e-10 * np.abs(b).max()
+    Ta, xa = equilibrium.equilibrate_hp(mech, -2.5e5, 101325.0, x0,
+                                        device=cuda)
+    Tb, xb = equilibrium.equilibrate_hp(mech, -2.5e5, 101325.0, x0,
+                                        device="cpu")
+    assert abs(Ta - Tb) <= 1e-10 * Tb
+    assert np.abs(xa - xb).max() <= 1e-10 * np.abs(xb).max()
+    path = str(tmp_path / "surf.yaml")
+    _synthetic_interface_yaml(path, seed=0)
+    X = np.zeros(mech.nspec)
+    X[mech.species_index("o2")] = 0.2
+    X[mech.species_index("h2o")] = 0.05
+    X[mech.species_index("co")] = 0.02
+    X[mech.species_index("n2")] = 0.73
+    conc = X * 101325.0 / (8.314462618 * 900.0)
+    th0 = np.zeros(12)
+    th0[0] = th0[1] = 0.5
+    out = [surface.advance_coverages(
+        surface.load_interface(path, mech, device=d), mech, 900.0, conc,
+        th0, 1e-3)[0].cpu() for d in (cuda, "cpu")]
+    assert float((out[0] - out[1]).abs().max()) <= 1e-9
+    assert abs(float(out[0].sum()) - 1.0) <= 1e-12
+
+
 def _small_citcoms(device, **kw):
     from g4s_tpu_torch.models.citcoms import CitcomModel
     from g4s_tpu_torch.models.citcoms.config import CitcomConfig

@@ -98,7 +98,14 @@ def test_package_imports_no_jax():
             "g4s_tpu_torch.models.citcoms.distributed, "
             "g4s_tpu_torch.models.citcoms.combine, "
             "g4s_tpu_torch.models.cantera.shock_tube, "
-            "g4s_tpu_torch.drivers.multichip; "
+            "g4s_tpu_torch.drivers.multichip, "
+            "g4s_tpu_torch.models.cantera.transport, "
+            "g4s_tpu_torch.models.cantera.multi_transport, "
+            "g4s_tpu_torch.models.cantera.transport_models, "
+            "g4s_tpu_torch.models.cantera.equilibrium, "
+            "g4s_tpu_torch.models.cantera.solution_array, "
+            "g4s_tpu_torch.models.cantera.surface, "
+            "g4s_tpu_torch.models.cantera.flame; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'g4s_tpu.')) or m == 'g4s_tpu'); "
             "print(bad); sys.exit(1 if bad else 0)")
