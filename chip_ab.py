@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Time two hand kernels of the port in one or more checkouts on one CUDA
-card: the sorted segment sum at every shape the Cookbook2 step gives it,
-and the static WSELL chain (one kernel per tile) at the stencil pack.
+"""Time hand kernels of the port in one or more checkouts on one CUDA card:
+the sorted segment sum at every shape the Cookbook2 step gives it, the
+static WSELL chain (one kernel per tile) at the stencil pack, and the
+permute gather at the engine's six path permutations.
 
-    python3 chip_ab.py [--segment-only] PARENT_ROOT . . PARENT_ROOT
+    python3 chip_ab.py [--segment-only | --permute-only] PARENT_ROOT . . \
+        PARENT_ROOT
 
 Each root runs in a process of its own, in the order given (parent,
 change, change, parent compares two versions on one card), and imports
@@ -14,8 +16,16 @@ far), its plain version's, one `index_add_` of the unsorted blocks, the
 bytes bound of the tensors the root passes, and a hash of the result's
 bytes (two roots that agree bit for bit print the same hash); then the
 chain's warm and cold ms (a 128 MiB fill flushes L2 before each cold
-call) and its nvcc seconds, unless --segment-only. Needs one CUDA card;
-fails without one.
+call) and its nvcc seconds; then, per path permutation (chip_smoke.py
+phases 3-5: stencil.perm, stencil.iperm, dia.perm, stream.xplan,
+stream.route2, stream.rowplan), the f32 gather's warm and cold ms and
+the f64 gather's warm ms beside the gather over the identity sigma, m
+random reads of z alone (a generated yardstick kernel: no sigma read, no
+out written), `z[sigma]` warm and cold, the bound, whether it equals the
+plain version bit for bit, and the result's hash, and the device ms of
+one stencil, RCM-DIA and stream `mxv`.
+--segment-only runs the segment sum alone, --permute-only the permute
+alone. Needs one CUDA card; fails without one.
 """
 
 from __future__ import annotations
@@ -30,21 +40,145 @@ import time
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory, published
 
 
-def _stencil(nx: int, seed: int):
-    """chip_smoke.py's phase 3 matrix (bench.py's headline): a 3D 7-point
-    stencil, renumbered by a random permutation drawn from `seed`."""
+def _permute_paths(dev):
+    """The engine's six path permutations as chip_smoke.py phases 3-5 build
+    them (the band's renumbering drawn from its own seed here), with the
+    graphs whose mxv runs them: ({name: (sigma, n_z, n_out)}, {layout:
+    (graph, x)})."""
     import numpy as np
     import scipy.sparse as sp
-    rng = np.random.default_rng(seed)
-    t_ = sp.diags([1.0, 1.0, 1.0], [-1, 0, 1], (nx, nx))
-    e_ = sp.eye(nx)
-    a = (sp.kron(sp.kron(e_, e_), t_) + sp.kron(sp.kron(e_, t_), e_)
-         + sp.kron(t_, sp.kron(e_, e_))).tocsr().astype(np.float32)
-    pp = rng.permutation(nx ** 3)
-    return a[pp][:, pp].tocsr()
+    import torch
+    from chip_smoke import _band, _stencil
+    from g4s_tpu_torch.engine import build_graph
+    from g4s_tpu_torch.ops import wsell_spmv
+    from g4s_tpu_torch.sparse import CSR
+    g = build_graph(CSR.from_scipy(_stencil(101, seed=0)), device=dev)
+    n = g.perm.shape[0]
+    n_pad = wsell_spmv._chain_pad(g.wsell)
+    nb, nr = 1 << 20, 1 << 17
+    p_ = np.random.default_rng(2).permutation(nb)
+    g4 = build_graph(CSR.from_scipy(_band(nb)[p_][:, p_].tocsr()),
+                     device=dev)
+    rr = np.random.default_rng(1)
+    rand = sp.coo_matrix(
+        (rr.normal(size=nr * 8).astype(np.float32),
+         (rr.integers(0, nr, nr * 8), rr.integers(0, nr, nr * 8))),
+        shape=(nr, nr)).tocsr()
+    g5 = build_graph(CSR.from_scipy(rand), device=dev, reorder=False)
+    s5 = g5.stream
+    paths = {
+        "stencil.perm": (g.perm, n, n_pad),
+        "stencil.iperm": (g.iperm, n_pad, n),
+        "dia.perm": (g4.perm, nb, nb),
+        "stream.xplan": (s5.xplan.sigma, nr, s5.nc_pad),
+        "stream.route2": (s5.route2.sigma, s5.m, s5.m),
+        "stream.rowplan": (s5.rowplan.sigma[: s5.n_rows], s5.n_rows,
+                           s5.n_rows),
+    }
+    xs = np.random.default_rng(3)
+    graphs = {name: (gr, torch.from_numpy(xs.standard_normal(k)
+                                          .astype(np.float32)).to(dev))
+              for name, gr, k in (("stencil", g, n), ("dia", g4, nb),
+                                  ("stream", g5, nr))}
+    return paths, graphs
 
 
-def _one(root: str, chain: bool) -> dict:
+# m reads of z at hashed, scattered indices and nothing else (no index
+# array read, no output written; a store that never happens keeps the
+# loads): what the permute gather's random reads alone cost on the card
+_RANDOM_READS = r"""
+#include <cuda_runtime.h>
+__global__ void __launch_bounds__(256)
+random_reads(const float* __restrict__ z, unsigned n_z, long long m,
+             float* __restrict__ sink) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= m) return;
+  const float v =
+      __ldg(z + (unsigned)(((unsigned long long)i * 2654435761ull) % n_z));
+  if (v == 1234.5f) sink[0] = v;
+}
+extern "C" int g4s_random_reads(const void* z, long long n_z, long long m,
+                                void* sink, void* stream) {
+  random_reads<<<(unsigned)((m + 255) / 256), 256, 0,
+                 (cudaStream_t)stream>>>((const float*)z, (unsigned)n_z, m,
+                                         (float*)sink);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def _permute(dev, flush_buf) -> dict:
+    """The permute gather at the six path permutations, f32 (and f64
+    warm), beside m random reads of z alone."""
+    import ctypes
+    import numpy as np
+    import torch
+    from g4s_tpu_torch.engine import mxv
+    from g4s_tpu_torch.kernels import _build
+    from g4s_tpu_torch.obs.timings import device_ms
+    from g4s_tpu_torch.ops import route
+    lib, _ = _build.build_generated("random_reads", _RANDOM_READS)
+    lib.g4s_random_reads.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                     ctypes.c_int64, ctypes.c_void_p,
+                                     ctypes.c_void_p]
+    sink = torch.zeros(1, device=dev)
+
+    def random_reads(z, m_):
+        _build.check(lib.g4s_random_reads(
+            z.data_ptr(), z.shape[0], m_, sink.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "g4s_random_reads")
+
+    paths, graphs = _permute_paths(dev)
+    out = {}
+    for name, (sigma, n_z, n_out) in paths.items():
+        m_ = sigma.shape[0]
+        z = torch.from_numpy(np.random.default_rng(m_).standard_normal(n_z)
+                             .astype(np.float32)).to(dev)
+        top = int(sigma.max()) + 1
+        z_lib = z if top <= n_z else torch.cat([z, z.new_zeros(top - n_z)])
+        reads = int(torch.unique(sigma[sigma < n_z]).numel())
+        ident = torch.arange(m_, dtype=torch.int32, device=dev)
+        got = route.permute_gather(z, sigma, n_out=n_out)
+        exact = torch.equal(got, route._apply_permute_plain(
+            z, sigma, n_out=n_out))
+
+        def gather():
+            return route.permute_gather(z, sigma, n_out=n_out)
+
+        def flush():
+            flush_buf.fill_(1)
+
+        z64 = z.double()
+        out[name] = {
+            "m": m_, "n_z": n_z, "n_out": n_out,
+            "ms": device_ms(gather, device=dev, reps=50),
+            "f64_ms": device_ms(lambda: route.permute_gather(
+                z64, sigma, n_out=n_out), device=dev, reps=50),
+            "random_reads_ms": device_ms(lambda: random_reads(z, m_),
+                                         device=dev, reps=50),
+            "cold_ms": device_ms(gather, device=dev, reps=50, before=flush),
+            "identity_ms": device_ms(lambda: route.permute_gather(
+                z, ident, n_out=n_out), device=dev, reps=50),
+            "library_ms": device_ms(lambda: z_lib[sigma], device=dev,
+                                    reps=50),
+            "library_cold_ms": device_ms(lambda: z_lib[sigma], device=dev,
+                                         reps=50, before=flush),
+            # sigma (int32) and the z it reaches read, out written (f32)
+            "bound_ms": 4.0 * (m_ + reads + n_out) / HBM_BYTES_PER_S * 1e3,
+            "bit_exact": exact,
+            "sha": hashlib.sha256(got.cpu().numpy().tobytes())
+            .hexdigest()[:16]}
+    sigma, n_z, n_out = paths["stencil.perm"]
+    if hasattr(route, "permute_launch_shape"):
+        out["launch_shape"] = route.permute_launch_shape(torch.float32,
+                                                         n_out, device=dev)
+    out["mxv_ms"] = {name: device_ms(lambda: mxv(gr, x), device=dev,
+                                     reps=50)
+                     for name, (gr, x) in graphs.items()}
+    return out
+
+
+def _one(root: str, parts: set) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np
     import torch
@@ -53,13 +187,18 @@ def _one(root: str, chain: bool) -> dict:
     from g4s_tpu_torch.obs.timings import device_ms
     from g4s_tpu_torch.ops import segment, static_spmv, wsell_spmv
     from g4s_tpu_torch.sparse import CSR
+    from chip_smoke import _stencil
     here = os.path.dirname(os.path.abspath(__file__))
     dev = torch.device("cuda")
     cfg = load_config(os.path.join(here, "g4s_tpu_torch", "models",
                                    "citcoms", "cookbook2.cfg"))
     flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-    out = {"root": root, "card": torch.cuda.get_device_name(0),
-           "segment_sum": {}}
+    out = {"root": root, "card": torch.cuda.get_device_name(0)}
+    if "permute" in parts:
+        out["permute"] = _permute(dev, flush_buf)
+    if "segment" not in parts:
+        return out
+    out["segment_sum"] = {}
     rng = np.random.default_rng(5)
     for dtype in (torch.float64, torch.float32):
         m = CitcomModel(cfg, dtype=dtype, device=dev)
@@ -110,7 +249,7 @@ def _one(root: str, chain: bool) -> dict:
                 "sha": hashlib.sha256(got.cpu().numpy().tobytes())
                 .hexdigest()[:16]}
         del m, ops, cases
-    if not chain:
+    if "chain" not in parts:
         return out
     a = _stencil(101, seed=0)
     g = build_graph(CSR.from_scipy(a), device=dev)
@@ -137,10 +276,12 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_ab: no CUDA card", file=sys.stderr)
         return 1
-    flags = [a for a in argv if a == "--segment-only"]
-    roots = [a for a in argv if a != "--segment-only"]
+    only = {"--segment-only": {"segment"}, "--permute-only": {"permute"}}
+    flags = [a for a in argv if a in only]
+    roots = [a for a in argv if a not in only]
     if roots[:1] == ["--one"]:
-        print(json.dumps(_one(roots[1], chain=not flags)), flush=True)
+        parts = only[flags[0]] if flags else {"segment", "chain", "permute"}
+        print(json.dumps(_one(roots[1], parts)), flush=True)
         return 0
     rc = 0
     for root in roots or ["."]:

@@ -4253,6 +4253,14 @@ def main() -> int:
     for line in log.splitlines():
         if "registers" in line or "spill" in line:
             print("    ptxas:", line.strip())
+    # the permute kernel's launch at the 2^20 gathers of phase 2 (sigma is
+    # read straight from device memory: no stages in shared memory)
+    for dt in (torch.float32, torch.float64):
+        sh = route.permute_launch_shape(dt, 1 << 20, device=dev)
+        print(f"    ptxas: permute_gather {str(dt)[6:]} launch at n_out "
+              f"2^20: tile {sh['tile']}, threads {sh['threads']}, "
+              f"blocks/SM {sh['blocks_per_sm']}, grid {sh['grid']}, "
+              f"dynamic smem {sh['smem_bytes']} B")
 
     laps.append((2, time.perf_counter()))
     # ---- 2: each kernel against its plain version, small cases ----------

@@ -41,6 +41,7 @@ _INT = ctypes.c_int
 SIGNATURES = {
     "g4s_permute_gather_f32": (_P, _I64, _P, _I64, _P, _I64, _P),
     "g4s_permute_gather_f64": (_P, _I64, _P, _I64, _P, _I64, _P),
+    "g4s_permute_gather_shape": (_INT, _I64, _P),
     "g4s_wsell_spmv_f32": (_P, _P, _P, _P, _P, _I64, _I64, _INT, _INT, _INT,
                            _P),
     "g4s_bwell_spmv_f32": (_P, _P, _P, _P, _P, _I64, _INT, _INT, _INT, _P),

@@ -18,6 +18,7 @@ NotImplementedError, so the dispatcher makes the reference's choices.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -123,6 +124,28 @@ def permute_gather(z: torch.Tensor, sigma: torch.Tensor, *,
     LAUNCHES += 1
     _build.check(rc, name)
     return out
+
+
+def permute_launch_shape(dtype, n_out: int, *, device="cuda") -> dict:
+    """How permute_gather launches its kernel for an n_out-element output
+    of `dtype` (f32 or f64) on a CUDA device, without launching it: the
+    tile (outputs per block), threads per block, blocks per SM, the grid,
+    and the dynamic shared memory per block in bytes."""
+    device = resolve_device(device)
+    if device.type != "cuda":
+        raise ValueError(f"permute_launch_shape: {device} is not a CUDA "
+                         f"device")
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"permute_launch_shape: dtype must be f32 or f64, "
+                        f"not {dtype}")
+    lib = _build.load()
+    shape = (ctypes.c_longlong * 5)()
+    with torch.cuda.device(device):
+        _build.check(lib.g4s_permute_gather_shape(
+            int(dtype == torch.float64), int(n_out), shape),
+            "g4s_permute_gather_shape")
+    return dict(zip(("tile", "threads", "blocks_per_sm", "grid",
+                     "smem_bytes"), shape))
 
 
 def apply_permute(plan: PermutePlan, z: torch.Tensor) -> torch.Tensor:

@@ -60,6 +60,69 @@ def test_permute_gather_fused_bit_exact(cuda, dtype, rem, off_s, off_z):
     assert got.shape == (n_out,) and torch.equal(got, want)
 
 
+# (m, n_z, n_out, sigma offset, z offset) in units of the kernel's tile T
+# (the outputs one block writes): ragged last tiles, fewer tiles than SMs,
+# nothing to gather, a long zero tail, unaligned heads
+TILE_CASES = {
+    "T-1": lambda t: (t - 1, t - 1, t - 1, 0, 0),
+    "T": lambda t: (t, t, t, 0, 0),
+    "T+1": lambda t: (t + 1, t + 1, t + 1, 0, 0),
+    "3T+5": lambda t: (3 * t + 5, 3 * t + 5, 3 * t + 5, 0, 0),
+    "few-tiles": lambda t: (10 * t + 3, 10 * t + 3, 10 * t + 3, 0, 0),
+    "m=0": lambda t: (0, t, 2 * t + 3, 0, 0),
+    "n_z=0": lambda t: (2 * t + 1, 0, 2 * t + 1, 0, 0),
+    "n_out-tiles-past-m": lambda t: (t + 7, t, 6 * t + 5, 0, 0),
+    "offsets-1-3": lambda t: (4 * t + 2, 4 * t + 2, 4 * t + 9, 1, 3),
+    "offsets-2-1": lambda t: (4 * t + 1, 4 * t - 5, 4 * t + 1, 2, 1),
+    "offsets-3-2": lambda t: (3 * t + 3, 3 * t + 3, 5 * t, 3, 2),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(TILE_CASES))
+def test_permute_gather_tile_edges(cuda, dtype, case):
+    """The kernel at its tiles' edges, bit-exact against the plain version,
+    one launch per call, one block per tile."""
+    shape = route.permute_launch_shape(dtype, 1 << 20, device=cuda)
+    t = shape["tile"]
+    m, n_z, n_out, off_s, off_z = TILE_CASES[case](t)
+    rng = np.random.default_rng(m + n_out)
+    # a permutation of [0, m) with some indices past n_z and one negative
+    perm = rng.permutation(m + off_s).astype(np.int32)
+    if m > 2:
+        perm[off_s + 1] = -1
+    sigma = torch.from_numpy(perm).to(cuda)[off_s:]
+    z = torch.from_numpy(rng.standard_normal(n_z + off_z)).to(
+        cuda, dtype)[off_z:]
+    want = route._apply_permute_plain(z, sigma, n_out=n_out)
+    before = route.LAUNCHES
+    got = route.permute_gather(z, sigma, n_out=n_out)
+    assert route.LAUNCHES == before + 1
+    assert got.shape == (n_out,) and torch.equal(got, want)
+    small = route.permute_launch_shape(dtype, n_out, device=cuda)
+    assert small["tile"] == t and small["grid"] == -(-n_out // t)
+    assert small["blocks_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_permute_gather_reads_what_the_kernel_before_wrote(cuda, dtype):
+    """Two gathers back to back, the second's sigma made by a kernel right
+    before it and its z the first's output: each reads the finished data."""
+    m = 3 * route.permute_launch_shape(dtype, 1 << 20,
+                                       device=cuda)["tile"] + 17
+    rng = np.random.default_rng(2)
+    z = torch.from_numpy(rng.standard_normal(m)).to(cuda, dtype)
+    sigma1 = torch.from_numpy(rng.permutation(m).astype(np.int32)).to(cuda)
+    for _ in range(3):
+        a = route.permute_gather(z, sigma1, n_out=m + 5)
+        sigma2 = ((torch.arange(m + 5, device=cuda) * 7919) % (m + 9)).int()
+        b = route.permute_gather(a, sigma2)
+        want_a = route._apply_permute_plain(z, sigma1, n_out=m + 5)
+        assert torch.equal(a, want_a)
+        assert torch.equal(b, route._apply_permute_plain(want_a, sigma2))
+        z = b[:m]
+
+
 def test_permute_gather_rejects_bad_inputs(cuda):
     z = torch.zeros(10, device=cuda)
     with pytest.raises(TypeError):
