@@ -271,6 +271,39 @@ Run from the root of a checkout: `python3 chip_smoke.py`. It
      FLAME_COVERAGE_TOL of the host CPU's, coverages summing to 1 within
      1e-12. No Pallas kernel lies on this path in the reference, so no
      hand kernel does here (launch counts printed, 0).
+ 19. Cantera's phase models, f64, right after phase 18 while phase 17's
+     multi-rank run goes on; the host CPU's side of every block runs in
+     spawned one-thread processes started first (the steam table in
+     PHASE19_STEAM_CHUNKS pieces, started with phase 13, when the host
+     has cores to spare), and each block is held to it within
+     PHASE19_TOL: (1) IAPWS-95: p(500 K, 838.025 kg/m^3) = 10.0003858 MPa,
+     rho(298.15 K, 1 atm) = 997.0476 kg/m^3, PDSS_Water's mu0(423.15 K) =
+     -317.175792 kJ/gmol and alpha < 0 at 276.15 K < alpha at 300 K on the
+     card, then the steam table, torch.func.vmap of density (60 Newton
+     steps), h, s, p and alpha over PHASE19_STEAM = 256 x 256 liquid
+     states (T 275-550 K, P 10-100 MPa): ms per call and per state beside
+     the f64 bound of its element operations (counted by a dispatch mode
+     on one state); (2) HMW at the width of the Harvie-Moller-Weare
+     seawater model (_synthetic_brine_yaml: 11 solutes and water, seeded
+     Pitzer parameters, E-theta, psi, variable A_Debye; IAPWS, HKFT,
+     Mu0Poly and Shomate standard states): activity_all and
+     partial_molar_props at PHASE19_HMW_STATES seeded (T, molality)
+     states; (3) the five Debye-Huckel forms on a six-species NaCl phase
+     at the reference tests' two molality sets; (4) one phase of each
+     condensed family (_phase_models_yaml): props, density and chemical
+     potentials; (5) N2 and CO2: anchoring offsets, the saturation state
+     (the equal-Gibbs residual within PHASE19_SAT_TOL), a liquid, a gas
+     and a two-phase state; (6) an oxygen-plasma-shaped phase with
+     isotropic distributions of shape factor 1 and 2 and a discretized
+     one on 1,000 levels: Te, the species thermo with the electron at Te,
+     the two-temperature rate; (7) VCS on the reference's NaCl_equil
+     layout (the brine's NaCl phase, an N2/O2/H2O gas, NaCl(S); 2 mol
+     H2O(L), 4 mol N2, 5 mol NaCl(S) at 298.15 K and 1 atm): phase moles
+     and mole fractions, the outer-sweep count equal to the host CPU's,
+     the elements within PHASE19_ELEMENT_TOL. Each block prints the wall
+     ms of one call of its main function and that call's device kernels,
+     busy ms and idle share. No Pallas kernel lies on this path in the
+     reference, so no hand kernel does here (launch counts printed, 0).
 Device times are medians per call between back-to-back calls queued
 behind a device sleep (g4s_tpu_torch.obs.timings.device_ms); "cold" times
 flush L2 before each call, outside its event pair. Each phase
@@ -296,6 +329,7 @@ import time
 REL_TOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory, published
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+F64_OPS_PER_S = 34e12         # H100 SXM float64 outside the tensor cores
 # Cookbook2 against the blessed f64 trajectory, which the reference computed
 # in f64 on the CPU. Rounding alone moves that trajectory: the initial
 # solve's inner CG amplifies a difference of one rounding about 2.6-fold per
@@ -384,6 +418,32 @@ FLAME_EQ_TOL = 1e-10
 FLAME_COVERAGE_TOL = 1e-9
 FLAME_T_MARGIN = 5.0
 FLAME_HOST_TIMEOUT = 600
+# Cantera's phase models (phase 19), f64, card against the host CPU
+# relative to each value's largest magnitude: the IAPWS-95 steam table
+# (PHASE19_STEAM T x P liquid states, T 275-550 K, P 10-100 MPa: rho, h
+# and s at 1e-12, PHASE19_STEAM_TIGHT; p and alpha at 1e-11, since in the
+# cold liquid p = rho R T (1 + delta phir_d) keeps about 5 % of its terms
+# and alpha's dp/dT cancels by the density maximum, so an ulp of the
+# card's or the CPU's exp and pow moves them by about 1e-12), closed
+# forms (Debye-Huckel, condensed families, plasma) at 1e-12, Newton-based
+# values (HMW, pure fluids, and the water block's release values and
+# alpha at 276.15 K, where alpha crosses zero by the density maximum and
+# its dp/dT cancels) at 1e-10, VCS phase moles and mole fractions
+# at 1e-9; the HMW seawater sweep's (T, molality scale) states; the pure
+# fluids' equal-Gibbs residual at saturation; VCS element conservation
+# (its phases are reported after the last damped activity refresh, which
+# moves q by up to half its 1e-10 stopping drift)
+PHASE19_SEED = 19
+PHASE19_STEAM = (256, 256)
+PHASE19_STEAM_CHUNKS = 4
+PHASE19_HMW_STATES = 16
+PHASE19_TOL = {"steam": 1e-11, "water": 1e-10, "dh": 1e-12,
+               "condensed": 1e-12, "plasma": 1e-12, "hmw": 1e-10,
+               "purefluid": 1e-10, "vcs": 1e-9}
+PHASE19_STEAM_TIGHT = {"rho": 1e-12, "h": 1e-12, "s": 1e-12}
+PHASE19_SAT_TOL = 1e-8
+PHASE19_ELEMENT_TOL = 1e-10
+PHASE19_HOST_TIMEOUT = 600
 # the rest of regional CitcomS (phase 14): multigrid, the thermochemical
 # step and one step of each other branch, f64 on the card against the host
 # CPU relative to each field's largest magnitude; multigrid's initial vrms
@@ -1271,6 +1331,477 @@ def _synthetic_interface_yaml(path, *, seed: int) -> dict:
         f.write("\n".join(lines) + "\n")
     return {"species": len(names),
             "reactions": sum(l.startswith("- equation") for l in lines)}
+
+
+def _yaml_flow(v) -> str:
+    """v as one line of flow-style YAML that PyYAML reads back exactly:
+    strings quoted, floats with a point and a signed exponent."""
+    import json
+    if isinstance(v, dict):
+        return "{" + ", ".join(f"{_yaml_flow(k)}: {_yaml_flow(x)}"
+                               for k, x in v.items()) + "}"
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_yaml_flow(x) for x in v) + "]"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        return f"{v:.16e}"
+    return json.dumps(str(v))
+
+
+def _write_yaml(path, doc: dict) -> None:
+    """Write a Cantera-format document: top-level keys in block style,
+    one flow-style line per list entry."""
+    lines = []
+    for key, val in doc.items():
+        if isinstance(val, list):
+            lines.append(f"{key}:")
+            lines += [f"- {_yaml_flow(x)}" for x in val]
+        else:
+            lines.append(f"{key}: {_yaml_flow(val)}")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+# the seawater system of Harvie, Moller and Weare (1984): solutes as name,
+# composition, standard state. HKFT constants are of the size SUPCRT92
+# lists (g0, h0 cal/gmol; s0 cal/gmol/K; a1..a4, c1, c2, omega in its
+# cal units); piecewise-Gibbs ions carry h0 kJ/mol and mu0 kJ/mol at
+# 298.15 K on Cantera's absolute-entropy scale; CO2(aq) is Shomate
+_BRINE_HKFT = {
+    "Na+": ({"Na": 1, "E": -1}, -62591.0, -57433.0, 13.96,
+            (0.1839, -228.5, 3.256, -27260.0), (18.18, -29810.0), 33060.0),
+    "K+": ({"K": 1, "E": -1}, -67510.0, -60270.0, 24.15,
+           (0.3559, -147.99, 5.435, -27120.0), (7.40, -17910.0), 19270.0),
+    "Cl-": ({"Cl": 1, "E": 1}, -31379.0, -39933.0, 13.56,
+            (0.4032, 480.1, 5.563, -28470.0), (-4.40, -57140.0), 145600.0),
+    "Ca+2": ({"Ca": 1, "E": -2}, -132120.0, -129800.0, -13.5,
+             (-0.01947, -725.2, 5.2966, -24792.0), (9.0, -25220.0),
+             123660.0),
+    "Mg+2": ({"Mg": 1, "E": -2}, -108505.0, -111367.0, -33.0,
+             (-0.08217, -859.9, 8.39, -23900.0), (20.8, -58920.0),
+             153720.0),
+}
+_BRINE_POLY = {
+    "H+": ({"H": 1, "E": -1}, 0.0, 0.0, 0.0),
+    "OH-": ({"O": 1, "H": 1, "E": 1}, -230.015, -226.76, -148.0),
+    "SO4-2": ({"S": 1, "O": 4, "E": 2}, -909.34, -915.4, -293.0),
+    "HCO3-": ({"H": 1, "C": 1, "O": 3, "E": 1}, -691.99, -719.2, -35.0),
+    "CO3-2": ({"C": 1, "O": 3, "E": 2}, -677.14, -660.3, -290.0),
+}
+_BRINE_CO2AQ = ({"C": 1, "O": 2},
+                [24.99735, 55.18696, -33.69137, 7.948387, -0.136638,
+                 -423.9075, 132.0431])
+_BRINE_NACL_S = [50.72389, 6.672267, -2.517167, 10.15934, -0.200675,
+                 -427.2115, 130.3973]
+_BRINE_STATE = {"Na+": 0.486, "K+": 0.0106, "Mg+2": 0.0547,
+                "Ca+2": 0.0107, "Cl-": 0.566, "SO4-2": 0.0293,
+                "HCO3-": 0.0018, "CO3-2": 0.0003, "CO2(aq)": 1e-5,
+                "H+": 1e-8, "OH-": 1e-6}
+BRINE_NACL_SPECIES = ["H2O(L)", "Na+", "Cl-", "H+", "OH-"]
+
+
+def _synthetic_brine_yaml(path, *, seed: int) -> dict:
+    """Write an HMW-electrolyte file at the width of the Harvie-Moller-
+    Weare (1984) seawater model, Na-K-H-Ca-Mg-Cl-SO4-OH-HCO3-CO3-CO2-H2O
+    (11 solutes and water), and return its counts. Its published Pitzer
+    tables are not in the repository, so the interaction parameters come
+    from `seed`, inside the ranges such tables hold: beta0, beta1, beta2
+    and Cphi on every cation-anion pair in the complex-1 temperature model
+    (the 2-2 pairs with alpha1 1.4, the rest 2.0; alpha2 12), theta on
+    every like-sign pair (unequal charges among them, so E-theta acts),
+    psi on every like-sign pair with each ion of the other sign, and
+    A_Debye variable. Na-Cl keeps Pitzer's 25 C beta0 0.0765, beta1
+    0.2664 and Cphi 0.00127, so that the NaCl brine saturates near its
+    real 6 mol/kg. Standard states: IAPWS-95 water, HKFT for Na+, K+,
+    Cl-, Ca+2 and Mg+2, piecewise-Gibbs (Mu0Poly) for H+, OH-, SO4-2,
+    HCO3- and CO3-2, Shomate for CO2(aq). Phases: "seawater" (all 12
+    species) and "NaCl-brine" (BRINE_NACL_SPECIES, the interactions among
+    them); a fixed-stoichiometry "NaCl(S)" (halite, NIST Shomate)."""
+    import itertools
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    R = 8314.46261815324
+
+    def u(lo, hi):
+        return float(rng.uniform(lo, hi))
+
+    species = [{"name": "H2O(L)", "composition": {"H": 2, "O": 1},
+                "thermo": {"model": "liquid-water-IAPWS95"},
+                "equation-of-state": {"model": "liquid-water-IAPWS95"}}]
+    for i, (name, (comp, g0, h0, s0, a, c, om)) in enumerate(
+            _BRINE_HKFT.items()):
+        # alternate bare cal numbers and strings with units
+        unit = (lambda x, s: x) if i % 2 else (lambda x, s: f"{x} {s}")
+        species.append({"name": name, "composition": comp,
+                        "equation-of-state": {
+                            "model": "HKFT", "g0": unit(g0, "cal/gmol"),
+                            "h0": unit(h0, "cal/gmol"),
+                            "s0": unit(s0, "cal/gmol/K"),
+                            "a": [unit(a[0], "cal/gmol/bar"),
+                                  unit(a[1], "cal/gmol"),
+                                  unit(a[2], "cal*K/gmol/bar"),
+                                  unit(a[3], "cal*K/gmol")],
+                            "c": [unit(c[0], "cal/gmol/K"),
+                                  unit(c[1], "cal*K/gmol")],
+                            "omega": unit(om, "cal/gmol")}})
+    knots = (273.15, 298.15, 323.15, 373.15, 423.15, 473.15)
+    for i, (name, (comp, h0, mu298, cp)) in enumerate(_BRINE_POLY.items()):
+        # mu0(T) of a constant cp through (298.15 K, mu298), on the knots
+        s = (h0 - mu298) * 1e6 / 298.15
+        mu = [(h0 * 1e6 + cp * 1e3 * (T - 298.15) - T * (
+            s + cp * 1e3 * np.log(T / 298.15))) for T in knots]
+        dimless = i % 2 == 0
+        data = {T: (m / (R * T) if dimless else m) for T, m in
+                zip(knots, mu)}
+        species.append({"name": name, "composition": comp,
+                        "thermo": {"model": "piecewise-Gibbs",
+                                   "h0": f"{h0} kJ/mol",
+                                   "dimensionless": dimless, "data": data},
+                        "equation-of-state": {
+                            "model": "constant-volume",
+                            "molar-volume": u(0.005, 0.03)}})
+    species.append({"name": "CO2(aq)", "composition": _BRINE_CO2AQ[0],
+                    "thermo": {"model": "Shomate",
+                               "temperature-ranges": [273.15, 1200.0],
+                               "data": [_BRINE_CO2AQ[1]]},
+                    "equation-of-state": {"model": "constant-volume",
+                                          "molar-volume": 0.0325}})
+    names = [s["name"] for s in species]
+    z = {s["name"]: -s["composition"].get("E", 0) for s in species}
+    cations = [n for n in names if z[n] > 0]
+    anions = [n for n in names if z[n] < 0]
+
+    def coeff5(base, scale):
+        return [base, u(-1, 1) * 1e-3 * scale, u(-1, 1) * 1e-6 * scale,
+                u(-1, 1) * 10.0 * scale, u(-1, 1) * 1e-2 * scale]
+
+    inter = []
+    for c_, a_ in itertools.product(cations, anions):
+        two_two = abs(z[c_] * z[a_]) == 4
+        if (c_, a_) == ("Na+", "Cl-"):
+            b0, b1, cphi = 0.0765, 0.2664, 0.00127
+        else:
+            b0, b1, cphi = u(-0.1, 0.4), u(0.0, 3.5 if two_two else 1.5), \
+                u(-0.05, 0.05)
+        inter.append({"species": [c_, a_],
+                      "beta0": coeff5(b0, 1.0), "beta1": coeff5(b1, 1.0),
+                      "beta2": coeff5(u(-60.0, -1.0) if two_two
+                                      else u(-1.0, 0.0), 1.0),
+                      "Cphi": coeff5(cphi, 0.1),
+                      "alpha1": 1.4 if two_two else 2.0, "alpha2": 12.0})
+    for group, other in ((cations, anions), (anions, cations)):
+        for p, q in itertools.combinations(group, 2):
+            inter.append({"species": [p, q],
+                          "theta": coeff5(u(-0.1, 0.1), 0.1)})
+            for o in other:
+                inter.append({"species": [p, q, o],
+                              "psi": u(-0.02, 0.02)})
+    nacl = [it for it in inter
+            if set(it["species"]) <= set(BRINE_NACL_SPECIES)]
+    phases = [{"name": "seawater", "thermo": "HMW-electrolyte",
+               "elements": ["O", "H", "C", "S", "Cl", "Na", "K", "Mg",
+                            "Ca", "E"],
+               "species": [{"species-brine": names}],
+               "state": {"T": 298.15, "P": 101325.0,
+                         "molalities": _BRINE_STATE},
+               "activity-data": {"temperature-model": "complex",
+                                 "A_Debye": "variable",
+                                 "interactions": inter}},
+              {"name": "NaCl-brine", "thermo": "HMW-electrolyte",
+               "elements": ["O", "H", "Cl", "Na", "E"],
+               "species": [{"species-brine": BRINE_NACL_SPECIES}],
+               "state": {"T": 298.15, "P": 101325.0,
+                         "molalities": {"Na+": 6.0, "Cl-": 6.0,
+                                        "H+": 1e-7, "OH-": 1e-7}},
+               "activity-data": {"temperature-model": "complex",
+                                 "A_Debye": "variable",
+                                 "interactions": nacl}},
+              {"name": "NaCl(S)", "thermo": "fixed-stoichiometry",
+               "species": [{"species-solid": ["NaCl(S)"]}]}]
+    solid = [{"name": "NaCl(S)", "composition": {"Na": 1, "Cl": 1},
+              "thermo": {"model": "Shomate",
+                         "temperature-ranges": [250.0, 1075.0],
+                         "data": [_BRINE_NACL_S]},
+              "equation-of-state": {"model": "constant-volume",
+                                    "density": "2.165 g/cm^3"}}]
+    _write_yaml(path, {"description": f"Synthetic HMW seawater (seed "
+                                      f"{seed}), see chip_smoke."
+                                      f"_synthetic_brine_yaml.",
+                       "phases": phases, "species-brine": species,
+                       "species-solid": solid})
+    return {"species": len(names), "solutes": len(names) - 1,
+            "interactions": len(inter), "nacl_interactions": len(nacl)}
+
+
+# NASA7 rows (GRI-Mech 3.0 for N2, O2, H2O and O; Cantera's
+# oxygen-plasma electron; O2+ and O- as O2 and O with their heats of
+# formation) and temperature ranges
+_NASA_N2 = ([300.0, 1000.0, 5000.0],
+            [[3.298677, 1.4082404e-3, -3.963222e-6, 5.641515e-9,
+              -2.444854e-12, -1020.8999, 3.950372],
+             [2.92664, 1.4879768e-3, -5.68476e-7, 1.0097038e-10,
+              -6.753351e-15, -922.7977, 5.980528]])
+_NASA_O2 = ([200.0, 1000.0, 3500.0],
+            [[3.78245636, -2.99673416e-3, 9.84730201e-6, -9.68129509e-9,
+              3.24372837e-12, -1063.94356, 3.65767573],
+             [3.28253784, 1.48308754e-3, -7.57966669e-7, 2.09470555e-10,
+              -2.16717794e-14, -1088.45772, 5.45323129]])
+_NASA_H2O = ([200.0, 1000.0, 3500.0],
+             [[4.19864056, -2.0364341e-3, 6.52040211e-6, -5.48797062e-9,
+               1.77197817e-12, -30293.7267, -0.849032208],
+              [3.03399249, 2.17691804e-3, -1.64072518e-7, -9.7041987e-11,
+               1.68200992e-14, -30004.2971, 4.9667701]])
+_NASA_O = ([200.0, 1000.0, 3500.0],
+           [[3.1682671, -3.27931884e-3, 6.64306396e-6, -6.12806624e-9,
+             2.11265971e-12, 29122.2592, 2.05193346],
+            [2.56942078, -8.59741137e-5, 4.19484589e-8, -1.00177799e-11,
+             1.22833691e-15, 29217.5791, 4.78433864]])
+_NASA_E = ([200.0, 1000.0, 6000.0],
+           [[2.5, 0.0, 0.0, 0.0, 0.0, -745.375, -11.72]] * 2)
+
+
+def _shifted(nasa, da5):
+    tr, rows = nasa
+    return tr, [r[:5] + [r[5] + da5, r[6]] for r in rows]
+
+
+def _nasa(tr_rows) -> dict:
+    tr, rows = tr_rows
+    return {"model": "NASA7", "temperature-ranges": tr, "data": rows}
+
+
+PLASMA_LEVELS = 1000
+PLASMA_PHASES = {"plasma-maxwell": 1.0, "plasma-druyvesteyn": 2.0,
+                 "plasma-discretized": None}
+DH_PHASES = ("dh-dilute", "dh-bdot-ak", "dh-bdot-a", "dh-beta",
+             "dh-pitzer")
+CONDENSED_PHASES = ("ideal-solid", "lattice", "margules", "redlich-kister",
+                    "tabulated", "maskell", "compound-lattice",
+                    "ions-from-neutral", "ideal-molal", "electron-cloud",
+                    "stoich-sub")
+
+
+def _phase_models_yaml(path) -> dict:
+    """Write the phase-model inputs that have no data file in the
+    repository, in one Cantera-format file, and return its phase names:
+    the five Debye-Huckel forms on a six-species NaCl phase (H2O(L), Na+,
+    Cl-, H+, OH-, NaCl(aq); DH_PHASES), one phase of each condensed family
+    (CONDENSED_PHASES: ideal-solid, lattice, Margules, Redlich-Kister,
+    tabulated binary, Maskell, compound lattice over a lattice and a
+    stoichiometric sublattice, ions from a neutral Margules melt, ideal
+    molal, electron cloud), an oxygen-plasma-shaped phase (e, O2, O2+, O,
+    O-) with isotropic distributions of shape factor 1 and 2 and a
+    discretized one, each on PLASMA_LEVELS energy levels
+    (PLASMA_PHASES), and the ideal gas "air-water" (N2, O2, H2O; GRI-Mech
+    3.0 thermo). Parameters are of the sizes Cantera's own test inputs
+    use (test/data/thermo-models.yaml and debye-huckel-all.yaml, which are
+    not in the repository)."""
+    import numpy as np
+
+    def cc(T0, h0, s0, cp0):
+        return {"model": "constant-cp", "T0": T0, "h0": h0, "s0": s0,
+                "cp0": cp0}
+
+    dh_species = [
+        {"name": "H2O(L)", "composition": {"H": 2, "O": 1},
+         "thermo": cc(298.15, "-241.826 kJ/mol", "188.835 J/mol/K",
+                      "75.3 J/mol/K")},
+        {"name": "Na+", "composition": {"Na": 1, "E": -1},
+         "Debye-Huckel": {"ionic-radius": "4.0 angstrom"}},
+        {"name": "Cl-", "composition": {"Cl": 1, "E": 1},
+         "Debye-Huckel": {"ionic-radius": "3.0 angstrom"}},
+        {"name": "H+", "composition": {"H": 1, "E": -1},
+         "Debye-Huckel": {"ionic-radius": "9.0 angstrom"}},
+        {"name": "OH-", "composition": {"O": 1, "H": 1, "E": 1},
+         "Debye-Huckel": {"ionic-radius": "3.5 angstrom"}},
+        {"name": "NaCl(aq)", "composition": {"Na": 1, "Cl": 1},
+         "Debye-Huckel": {"weak-acid-charge": -1.0,
+                          "electrolyte-species-type":
+                              "weak-acid-associated"}}]
+    betas = [{"species": ["Na+", "Cl-"], "beta": 0.0410},
+             {"species": ["H+", "Cl-"], "beta": 0.0},
+             {"species": ["Na+", "OH-"], "beta": 0.06}]
+    common = {"A_Debye": 1.172576, "B_Debye": 3.2864e9,
+              "default-ionic-radius": "3.042843 angstrom"}
+    dh_data = {
+        "dh-dilute": {"model": "dilute-limit", **common},
+        "dh-bdot-ak": {"model": "B-dot-with-variable-a", "B-dot": 0.0410,
+                       "max-ionic-strength": 30.0,
+                       "use-Helgeson-fixed-form": True, **common},
+        "dh-bdot-a": {"model": "B-dot-with-common-a", "B-dot": 0.0410,
+                      **common},
+        "dh-beta": {"model": "beta_ij", "beta": betas, **common},
+        "dh-pitzer": {"model": "Pitzer-with-beta_ij", "beta": betas,
+                      **common}}
+    phases = [{"name": n, "thermo": "Debye-Huckel",
+               "species": [{"dh-species": "all"}],
+               "activity-data": dh_data[n]} for n in DH_PHASES]
+
+    vol = {"model": "constant-volume"}
+    cond = [
+        {"name": "A(s)", "composition": {"Li": 1},
+         "thermo": {"model": "NASA7",
+                    "temperature-ranges": [200.0, 600.0, 1500.0],
+                    "data": [[2.8, 2.0e-3, -1.0e-6, 2.0e-10, 0.0, -900.0,
+                              -12.0],
+                             [3.1, 1.0e-3, -3.0e-7, 4.0e-11, 0.0, -980.0,
+                              -13.5]]},
+         "equation-of-state": {**vol, "molar-volume": "13.0 cm^3/gmol"}},
+        {"name": "B(s)", "composition": {"Fe": 1},
+         "thermo": cc(298.15, "-20.0 kJ/mol", "30.0 J/mol/K",
+                      "25.0 J/mol/K"),
+         "equation-of-state": {"model": "density-temperature-polynomial",
+                               "units": {"mass": "g", "length": "cm"},
+                               "data": [7.9, -2.0e-4, 1.0e-8, 0.0]}},
+        {"name": "C(s)", "composition": {"Li": 1, "Fe": 1},
+         "thermo": {"model": "Shomate",
+                    "temperature-ranges": [250.0, 700.0, 1500.0],
+                    "data": [[45.0, 10.0, -3.0, 1.0, -0.3, -120.0, 90.0],
+                             [50.0, 5.0, -1.0, 0.2, -0.8, -122.0, 95.0]]},
+         "equation-of-state": {**vol, "molar-density": "0.07 mol/cm^3"}},
+        {"name": "L1(s)", "composition": {"Li": 1},
+         "thermo": cc(298.15, "-5.0 kJ/mol", "20.0 J/mol/K",
+                      "22.0 J/mol/K")},
+        {"name": "L2(s)", "composition": {"Li": 1, "H": 1},
+         "thermo": cc(298.15, "-90.0 kJ/mol", "25.0 J/mol/K",
+                      "30.0 J/mol/K"),
+         "equation-of-state": {**vol, "molar-volume": "11.0 cm^3/gmol"}},
+        {"name": "S1(s)", "composition": {"Fe": 1, "O": 1},
+         "thermo": cc(298.15, "-272.0 kJ/mol", "60.75 J/mol/K",
+                      "49.9 J/mol/K"),
+         "equation-of-state": {**vol, "density": "5.7 g/cm^3"}},
+        {"name": "KCl(L)", "composition": {"K": 1, "Cl": 1},
+         "thermo": cc(298.15, "-421.81 kJ/mol", "86.52 J/mol/K",
+                      "73.6 J/mol/K"),
+         "equation-of-state": {**vol, "molar-volume": "37.57 cm^3/gmol"}},
+        {"name": "LiCl(L)", "composition": {"Li": 1, "Cl": 1},
+         "thermo": cc(298.15, "-391.0 kJ/mol", "74.2 J/mol/K",
+                      "62.0 J/mol/K"),
+         "equation-of-state": {**vol, "molar-volume": "20.34 cm^3/gmol"}},
+        {"name": "LiC6", "composition": {"Li": 1, "C": 6},
+         "thermo": cc(298.15, "-11.65 kJ/mol", "0.0 J/mol/K",
+                      "0.0 J/mol/K"),
+         "equation-of-state": {**vol, "density": "2.2 g/cm^3"}},
+        {"name": "V6", "composition": {"C": 6},
+         "thermo": cc(298.15, "0.0 kJ/mol", "0.0 J/mol/K", "0.0 J/mol/K"),
+         "equation-of-state": {**vol, "density": "2.26 g/cm^3"}},
+        {"name": "H(s)", "composition": {"H": 1},
+         "thermo": cc(298.15, "0.0 J/mol", "0.0 J/mol/K", "0.0 J/mol/K"),
+         "equation-of-state": {**vol, "molar-volume": "0.005 m^3/kmol"}},
+        {"name": "He(s)", "composition": {"He": 1},
+         "thermo": cc(298.15, "1000.0 J/mol", "2.0 J/mol/K",
+                      "0.0 J/mol/K"),
+         "equation-of-state": {**vol, "molar-volume": "0.01 m^3/kmol"}},
+        {"name": "H2O(l)", "composition": {"H": 2, "O": 1},
+         "thermo": cc(298.15, "-285.83 kJ/mol", "69.95 J/mol/K",
+                      "75.33 J/mol/K"),
+         "equation-of-state": {**vol, "molar-volume": "0.018068 m^3/kmol"}},
+        {"name": "CH4(aq)", "composition": {"C": 1, "H": 4},
+         "thermo": cc(298.15, "-89.04 kJ/mol", "83.7 J/mol/K",
+                      "277.0 J/mol/K"),
+         "equation-of-state": {**vol, "molar-volume": "0.0371 m^3/kmol"}},
+        {"name": "H2S(aq)", "composition": {"H": 2, "S": 1},
+         "thermo": cc(298.15, "-39.75 kJ/mol", "121.0 J/mol/K",
+                      "180.0 J/mol/K"),
+         "equation-of-state": {**vol, "molar-volume": "0.0349 m^3/kmol"}},
+        {"name": "electron", "composition": {"E": 1},
+         "thermo": cc(298.15, 0.0, 0.0, 0.0)}]
+    ions = [{"name": "Li+", "composition": {"Li": 1, "E": -1}},
+            {"name": "K+", "composition": {"K": 1, "E": -1}},
+            {"name": "Cl-", "composition": {"Cl": 1, "E": 1}}]
+    xs = np.linspace(0.0, 1.0, 11)
+    phases += [
+        {"name": "ideal-solid", "thermo": "ideal-condensed",
+         "species": [{"condensed-species": ["A(s)", "B(s)", "C(s)"]}],
+         "standard-concentration-basis": "unity"},
+        {"name": "lattice", "thermo": "lattice",
+         "species": [{"condensed-species": ["L1(s)", "L2(s)"]}],
+         "site-density": "0.073 mol/cm^3"},
+        {"name": "stoich-sub", "thermo": "fixed-stoichiometry",
+         "species": [{"condensed-species": ["S1(s)"]}]},
+        {"name": "margules", "thermo": "Margules",
+         "species": [{"condensed-species": ["KCl(L)", "LiCl(L)"]}],
+         "units": {"energy": "J", "quantity": "mol"},
+         "interactions": [{"species": ["KCl(L)", "LiCl(L)"],
+                           "excess-enthalpy": [-17570.0, -377.0],
+                           "excess-entropy": [-7.627, "4.958 J/mol/K"]}]},
+        {"name": "redlich-kister", "thermo": "Redlich-Kister",
+         "species": [{"condensed-species": ["LiC6", "V6"]}],
+         "units": {"energy": "J", "quantity": "mol"},
+         "interactions": [{"species": ["LiC6", "V6"],
+                           "excess-enthalpy": [-3268.6, 3955.4, -4573.0,
+                                               6147.7, "-3339.2 J/mol"],
+                           "excess-entropy": [0.0, 1.5]}]},
+        {"name": "tabulated", "thermo": "binary-solution-tabulated",
+         "species": [{"condensed-species": ["LiC6", "V6"]}],
+         "tabulated-species": "LiC6",
+         "units": {"energy": "J", "quantity": "mol"},
+         "tabulated-thermo": {
+             "mole-fractions": xs.tolist(),
+             "enthalpy": (-1.2e4 * xs + 3.0e3 * np.sin(3.0 * xs)).tolist(),
+             "entropy": (4.0 * np.cos(2.0 * xs)).tolist()}},
+        {"name": "maskell", "thermo": "Maskell-solid-solution",
+         "species": [{"condensed-species": ["H(s)", "He(s)"]}],
+         "excess-enthalpy": "5.0 J/mol", "product-species": "H(s)"},
+        {"name": "compound-lattice", "thermo": "compound-lattice",
+         "composition": {"lattice": 1.0, "stoich-sub": 2.0}},
+        {"name": "ions-from-neutral",
+         "thermo": "ions-from-neutral-molecule",
+         "neutral-phase": "margules",
+         "species": [{"ion-species": ["Li+", "K+", "Cl-"]}]},
+        {"name": "ideal-molal", "thermo": "ideal-molal-solution",
+         "species": [{"condensed-species": ["H2O(l)", "CH4(aq)",
+                                            "H2S(aq)"]}]},
+        {"name": "electron-cloud", "thermo": "electron-cloud",
+         "density": "9.0 g/cm^3",
+         "species": [{"condensed-species": ["electron"]}]}]
+
+    plasma = [
+        {"name": "e", "composition": {"E": 1}, "thermo": _nasa(_NASA_E)},
+        {"name": "O2", "composition": {"O": 2}, "thermo": _nasa(_NASA_O2)},
+        {"name": "O2+", "composition": {"O": 2, "E": -1},
+         "thermo": _nasa(_shifted(_NASA_O2, 140114.0))},
+        {"name": "O", "composition": {"O": 1}, "thermo": _nasa(_NASA_O)},
+        {"name": "O-", "composition": {"O": 1, "E": 1},
+         "thermo": _nasa(_shifted(_NASA_O, -17750.0))}]
+    levels = np.linspace(0.0, 20.0, PLASMA_LEVELS)
+    for name, x in PLASMA_PHASES.items():
+        if x is None:
+            eedf = {"type": "discretized",
+                    "energy-levels": levels.tolist(),
+                    "distribution": (np.exp(-levels / 1.5)
+                                     * (1.0 + 0.1 * np.sin(levels))
+                                     ).tolist(),
+                    "normalize": True}
+        else:
+            eedf = {"type": "isotropic", "shape-factor": x,
+                    "mean-electron-energy": f"{1.5 * x} eV",
+                    "energy-levels": levels.tolist()}
+        phases.append({"name": name, "thermo": "plasma",
+                       "elements": ["O", "E"],
+                       "species": [{"plasma-species": "all"}],
+                       "kinetics": "gas",
+                       "electron-energy-distribution": eedf})
+    gas = [{"name": "N2", "composition": {"N": 2}, "thermo": _nasa(_NASA_N2)},
+           {"name": "O2", "composition": {"O": 2}, "thermo": _nasa(_NASA_O2)},
+           {"name": "H2O", "composition": {"H": 2, "O": 1},
+            "thermo": _nasa(_NASA_H2O)}]
+    phases.append({"name": "air-water", "thermo": "ideal-gas",
+                   "elements": ["O", "H", "N"],
+                   "species": [{"gas-species": "all"}],
+                   "state": {"T": 298.15, "P": 101325.0}})
+    _write_yaml(path, {"description": "Phase-model inputs, see "
+                                      "chip_smoke._phase_models_yaml.",
+                       "phases": phases, "dh-species": dh_species,
+                       "condensed-species": cond, "ion-species": ions,
+                       "plasma-species": plasma, "gas-species": gas})
+    return {"dh": DH_PHASES, "condensed": CONDENSED_PHASES,
+            "plasma": tuple(PLASMA_PHASES), "gas": "air-water"}
 
 
 def _erdos_renyi(n: int, avg_deg: int, seed: int):
@@ -3129,6 +3660,532 @@ def _cantera_flames(dev, ig_reactor, ig_final) -> None:
          hand_kernel_launches=sum(mod.LAUNCHES for mod in launch_mods))
 
 
+# ---- phase 19: Cantera's phase models --------------------------------------
+
+# the pure fluids' NASA7 ideal-gas anchors (GRI-Mech 3.0 low-range rows) and
+# states: the two-phase T of set_TX, a liquid (T, P) and a gas (T, P)
+_PF_NASA = {"N2": [3.298677, 1.4082404e-3, -3.963222e-6, 5.641515e-9,
+                   -2.444854e-12, -1020.8999, 3.950372],
+            "CO2": [2.35677352, 8.98459677e-3, -7.12356269e-6,
+                    2.45919022e-9, -1.43699548e-13, -48371.9697,
+                    9.90105222]}
+_PF_STATES = {"N2": (90.0, (70.0, 1e6), (100.0, 1e5)),
+              "CO2": (280.0, (250.0, 5e6), (300.0, 1e6))}
+# the two molality sets of the reference's Debye-Huckel tests
+_DH_MOLALITIES = (
+    {"Na+": 9.3549, "Cl-": 9.3549, "H+": 1.0499e-8, "OH-": 1.3765e-6,
+     "NaCl(aq)": 0.98492},
+    {"Na+": 3.0, "Cl-": 3.0, "H+": 1.0499e-8, "OH-": 1.3765e-6,
+     "NaCl(aq)": 0.98492})
+_CONDENSED_PROPS = ("ideal-solid", "lattice", "margules", "redlich-kister",
+                    "tabulated", "electron-cloud", "stoich-sub")
+
+
+def _steam_grid(shape):
+    """The steam table's states on the host: shape = (nT, nP) liquid
+    states, T 275-550 K and P 10-100 MPa (all above saturation)."""
+    import torch
+    nT, nP = shape
+    T, P = torch.meshgrid(
+        torch.linspace(275.0, 550.0, nT, dtype=torch.float64),
+        torch.linspace(1e7, 1e8, nP, dtype=torch.float64), indexing="ij")
+    return T.reshape(-1), P.reshape(-1)
+
+
+def _steam_table(T, P) -> dict:
+    """torch.func.vmap of the IAPWS-95 density (60 Newton steps each) and
+    of h, s, p and alpha at it, over the states (T, P)."""
+    from torch.func import vmap
+
+    from g4s_tpu_torch.models.cantera import water
+    rho = vmap(water.density)(T, P)
+    return {"rho": rho, "h": vmap(water.enthalpy_mole)(T, rho),
+            "s": vmap(water.entropy_mole)(T, rho),
+            "p": vmap(water.pressure)(T, rho),
+            "alpha": vmap(water.thermal_expansion_coeff)(T, rho)}
+
+
+def _steam_ops_per_state() -> float:
+    """Element operations one steam-table state costs (its density, 60
+    Newton steps, and h, s, p, alpha): the output elements of every
+    pointwise aten op plus the input elements of every reduction, counted
+    under TorchDispatchMode on one state on the host CPU (exp, pow and log
+    count as one operation each)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if torch.Tag.pointwise in func.tags:
+                o = out if isinstance(out, torch.Tensor) else out[0]
+                self.n += o.numel()
+            elif func.overloadpacket.__name__ in ("sum", "dot", "mv"):
+                self.n += args[0].numel()
+            return out
+
+    T, P = _steam_grid((1, 1))
+    with Count() as c:
+        _steam_table(T[:1], P[:1])
+    return float(c.n)
+
+
+def _hmw_states(ph, n: int):
+    """n (T, molalities) of a seeded sweep: T 275-370 K,
+    the seawater state's major ions scaled by 0.5-6 (ionic strength about
+    0.35 to 4.3 mol/kg), the minor species as they are."""
+    import numpy as np
+    rng = np.random.default_rng(PHASE19_SEED)
+    out = []
+    for T, f in zip(rng.uniform(275.0, 370.0, n),
+                    rng.uniform(0.5, 6.0, n)):
+        m = np.zeros(ph.nspec)
+        for k, v in ph.state_molalities.items():
+            m[ph.species_index(k)] = v * (f if v > 1e-4 else 1.0)
+        out.append((float(T), m))
+    return out
+
+
+def _vcs_run(dev, brine: str, phases: str) -> dict:
+    """The reference's NaCl_equil layout: the brine's NaCl phase, the
+    air-water gas read by load_mechanism and NaCl(S) as a Shomate
+    stoichiometric phase; 2 mol H2O(L), 4 mol N2, 5 mol NaCl(S) at 298.15 K
+    and 1 atm. Returns the result with the species' compositions."""
+    import numpy as np
+
+    from g4s_tpu_torch.models.cantera import load_mechanism, vcs_multiphase
+    T, P = 298.15, 101325.0
+    sol = vcs_multiphase.hmw_solution_phase(brine, "NaCl-brine", T, P,
+                                            device=dev)
+    gas = vcs_multiphase.gas_solution_phase(
+        load_mechanism(phases, "air-water"), T, P, device=dev)
+    solid = vcs_multiphase.stoich_phase_from_yaml(brine, "NaCl(S)", T, P)
+    res = vcs_multiphase.vcs_multiphase_tp(
+        [sol, gas, solid], [np.array([2.0, 0.0, 0.0, 0.0, 0.0]),
+                            np.array([4.0, 0.0, 0.0]), np.array(5.0)],
+        T, P)
+    comps = {solid.name: solid.composition}
+    for ph in (sol, gas):
+        comps.update(zip(ph.species_names, ph.compositions))
+    res["comps"] = comps
+    return res
+
+
+def _phase_block(block: str, dev, brine: str, phases: str, sizes: dict,
+                 part=None) -> dict:
+    """Phase 19's block `block` on `dev`: its outputs as flat numpy arrays
+    (keys starting "check:" are checked, not compared with the other
+    device). sizes: {"steam": (nT, nP), "hmw": states}; `part` = (lo, hi)
+    takes a slice of the steam table."""
+    import numpy as np
+    import torch
+
+    from g4s_tpu_torch.models.cantera import (condensed, electrolyte, hmw,
+                                              plasma, purefluid, water)
+    out = {}
+
+    def put(key, v):
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu()
+        out[key] = np.asarray(v, np.float64)
+
+    if block == "steam":
+        T, P = _steam_grid(sizes["steam"])
+        lo, hi = part if part is not None else (0, T.numel())
+        for k, v in _steam_table(T[lo:hi].to(dev), P[lo:hi].to(dev)).items():
+            put(k, v)
+    elif block == "water":
+        put("p500", water.pressure(500.0, 838.025, device=dev))
+        put("rho298", water.density(298.15, 101325.0, device=dev))
+        put("mu0_423", water.WaterStandardState(device=dev).mu0(423.15))
+        put("alpha", torch.stack([water.thermal_expansion_coeff(
+            T, water.density(T, 101325.0, device=dev))
+            for T in (276.15, 300.0)]))
+    elif block == "hmw":
+        ph = hmw.load_hmw(brine, "seawater")
+        for i, (T, m) in enumerate(_hmw_states(ph, sizes["hmw"])):
+            rho = water.density(T, 101325.0, device=dev)
+            act = hmw.activity_all(ph, m, T, rho_water=rho, device=dev)
+            pmp = hmw.partial_molar_props(ph, T, 101325.0, m, device=dev)
+            for k in ("acMol", "activities", "osmotic", "a_w"):
+                put(f"{i}:act:{k}", act[k])
+            for k in ("acoeff", "vbar", "hbar", "mu0", "V0", "H0"):
+                put(f"{i}:pmp:{k}", pmp[k])
+    elif block == "dh":
+        for name in DH_PHASES:
+            ph = electrolyte.load_debye_huckel(phases, name)
+            for j, ms in enumerate(_DH_MOLALITIES):
+                m = np.zeros(ph.nspec)
+                for k, v in ms.items():
+                    m[ph.species_index(k)] = v
+                put(f"{name}:{j}:gamma",
+                    electrolyte.molality_activity_coefficients(
+                        ph, m, device=dev))
+                put(f"{name}:{j}:I",
+                    electrolyte.ionic_strength(ph, m, device=dev))
+    elif block == "condensed":
+        rng = np.random.default_rng(PHASE19_SEED)
+        for name in _CONDENSED_PROPS:
+            ph = condensed.load_phase(phases, name)
+            X = rng.dirichlet(np.ones(len(ph.species)))
+            pr = condensed.props(ph, 600.0, 2e6, X, device=dev)
+            for k in pr._fields:
+                put(f"{name}:{k}", getattr(pr, k))
+            put(f"{name}:density",
+                condensed.density(ph, 600.0, 2e6, X, device=dev))
+        mk = condensed.load_phase(phases, "maskell")
+        put("maskell:mu", condensed.maskell_chem_potentials(
+            mk, 450.0, 2e5, np.array([0.35, 0.65]), device=dev))
+        cl = condensed.load_phase(phases, "compound-lattice")
+        for k, v in zip(("h", "s", "v", "mw", "mu"),
+                        condensed.compound_lattice_props(
+                            cl, 600.0, 4e6, [np.array([0.3, 0.7]),
+                                             np.array([1.0])], device=dev)):
+            put(f"compound-lattice:{k}", v)
+        ifn = condensed.load_phase(phases, "ions-from-neutral")
+        for k, v in condensed.ions_props(ifn, 800.0, 101325.0,
+                                         np.array([0.3, 0.2, 0.5]),
+                                         device=dev).items():
+            put(f"ions-from-neutral:{k}", v)
+        im = condensed.load_phase(phases, "ideal-molal")
+        for k, v in condensed.ideal_molal_props(
+                im, 320.0, 3e5, np.array([0.5, 1.5]), device=dev).items():
+            put(f"ideal-molal:{k}", v)
+    elif block == "purefluid":
+        for name, (T_sat, liq, gas) in _PF_STATES.items():
+            pf = purefluid.PureFluid(purefluid.SUBSTANCES[name],
+                                     _PF_NASA[name], device=dev)
+            put(f"{name}:offsets", [pf.h_off, pf.s_off])
+            sat = purefluid.update_sat(pf.sub, T_sat, device=dev)
+            put(f"{name}:sat", sat)
+            g = [float(purefluid.g_mass(pf.sub, r, T_sat, device=dev))
+                 for r in sat[1:]]
+            out[f"check:{name}:sat_residual"] = \
+                abs(g[0] - g[1]) / max(abs(g[0]), abs(g[1]))
+            put(f"{name}:two_phase", pf.set_TX(T_sat, 0.5))
+            for label, (T, Pr) in (("liquid", liq), ("gas", gas)):
+                rho = pf.set_TP(T, Pr)[0]
+                pr = pf.props(T, rho)
+                put(f"{name}:{label}", [rho, pr["h_mole"], pr["s_mole"],
+                                        pr["g_mole"]])
+    elif block == "plasma":
+        X = np.random.default_rng(PHASE19_SEED).dirichlet(np.ones(5))
+        for name in PLASMA_PHASES:
+            ph = plasma.load_plasma(phases, name, device=dev)
+            put(f"{name}:dist", ph.dist)
+            put(f"{name}:Te", ph.Te)
+            put(f"{name}:em", ph.mean_energy())
+            for T in (300.0, 1200.0):
+                for f in ("h0_RT", "s0_R", "cp0_R"):
+                    put(f"{name}:{T}:{f}", getattr(ph, f)(T))
+                put(f"{name}:{T}:h", ph.enthalpy_mole(T, X))
+            put(f"{name}:rate", plasma.two_temp_plasma_rate(
+                3.2e-9, 0.7, 400.0, 1500.0, 500.0, ph.Te, device=dev))
+    elif block == "vcs":
+        res = _vcs_run(dev, brine, phases)
+        for name, d in res["phases"].items():
+            put(f"{name}:N", d["N"])
+            put(f"{name}:x", list(d["x"].values()))
+        tot = {}
+        for d in res["phases"].values():
+            for sp, x in d["x"].items():
+                for e, v in res["comps"][sp].items():
+                    tot[e] = tot.get(e, 0.0) + d["N"] * x * v
+        b0 = {"H": 4.0, "O": 2.0, "N": 8.0, "NA": 5.0, "CL": 5.0, "E": 0.0}
+        out["check:element_err"] = max(abs(tot.get(e, 0.0) - v)
+                                       for e, v in b0.items()) / 8.0
+        out["check:outer"] = res["outer"]
+        out["check:newton"] = res["newton"]
+        out["check:nacl_s"] = res["phases"]["NaCl(S)"]["N"]
+    else:
+        raise ValueError(block)
+    return out
+
+
+def _phase_host(block: str, brine: str, phases: str, sizes: dict,
+                part=None) -> dict:
+    """Phase 19's host-CPU side of one block, in a process of its own with
+    one torch thread: its outputs, and the wall s it took."""
+    import torch
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    out = _phase_block(block, torch.device("cpu"), brine, phases, sizes,
+                       part)
+    if block == "steam" and part is not None and part[0] == 0:
+        out["check:ops_per_state"] = _steam_ops_per_state()
+    out["check:host_s"] = time.perf_counter() - t0
+    return out
+
+
+def _steam_host_start() -> dict:
+    """Phase 19's host-CPU steam table in PHASE19_STEAM_CHUNKS spawned
+    one-thread processes, started with phase 13: the table is most of
+    phase 19's host work (a chunk of 16,384 states took 41 s on the card
+    machine's host), and while phases 13 and 17 run a few host-bound
+    processes the host has cores to spare. Returns the pool and the
+    chunks' async results; _steam_host_stop ends them."""
+    sizes = {"steam": PHASE19_STEAM, "hmw": PHASE19_HMW_STATES}
+    n = PHASE19_STEAM[0] * PHASE19_STEAM[1]
+    chunks = [(i * n // PHASE19_STEAM_CHUNKS,
+               (i + 1) * n // PHASE19_STEAM_CHUNKS)
+              for i in range(PHASE19_STEAM_CHUNKS)]
+    pool = multiprocessing.get_context("spawn").Pool(PHASE19_STEAM_CHUNKS)
+    return {"pool": pool, "chunks": {c: pool.apply_async(
+        _phase_host, ("steam", "", "", sizes, c)) for c in chunks}}
+
+
+def _steam_host_stop(run: dict) -> None:
+    run["pool"].terminate()
+    run["pool"].join()
+
+
+def _phase_models(dev, steam_host: dict) -> None:
+    """Phase 19 (see the module docstring): Cantera's phase models on the
+    card, each block against the host CPU, whose side runs in spawned
+    one-thread processes started first (the steam table's in
+    `steam_host`, from _steam_host_start). Each block prints one line: its
+    largest relative error against the host CPU, the wall ms of one call of
+    its main function, that call's device kernels, busy ms and idle share
+    in one profile."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from g4s_tpu_torch.models.cantera import (condensed, electrolyte, hmw,
+                                              plasma, purefluid, water)
+    from g4s_tpu_torch.obs.timings import device_activities
+    from g4s_tpu_torch.ops import bwell_spmv, route, segment, wsell_spmv
+
+    launch_mods = (route, wsell_spmv, bwell_spmv, segment)
+    for mod in launch_mods:
+        mod.LAUNCHES = 0
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    brine = os.path.join(tmp.name, "brine_synthetic.yaml")
+    phases = os.path.join(tmp.name, "phase_models.yaml")
+    counts = _synthetic_brine_yaml(brine, seed=CANTERA_SEED)
+    _phase_models_yaml(phases)
+    _check(counts["solutes"] == 11, f"phase 19 brine: {counts}")
+    sizes = {"steam": PHASE19_STEAM, "hmw": PHASE19_HMW_STATES}
+    n_states = PHASE19_STEAM[0] * PHASE19_STEAM[1]
+    pool = multiprocessing.get_context("spawn").Pool(4)
+    try:
+        # the two long blocks start on workers of their own; the card
+        # takes them after the short ones
+        host = {b: pool.apply_async(_phase_host, (b, brine, phases, sizes))
+                for b in ("water", "hmw", "purefluid", "dh", "condensed",
+                          "plasma", "vcs")}
+
+        def got(key):
+            return host[key].get(timeout=PHASE19_HOST_TIMEOUT)
+
+        def compare(block, card, ref):
+            errs = {k: _rel_err(v, ref[k]) for k, v in card.items()
+                    if not k.startswith("check:")}
+            worst = max(errs, key=errs.get)
+            _check(errs[worst] <= PHASE19_TOL[block],
+                   f"phase 19 {block}, card against host CPU: {worst} "
+                   f"{errs[worst]} > {PHASE19_TOL[block]}")
+            return errs[worst], worst
+
+        def profile(fn, wall_ms):
+            acts = device_activities(fn)
+            busy = sum(us for _, us in acts) / 1e3
+            return {"kernels_per_call": len(acts),
+                    "busy_ms": f"{busy:.3f}",
+                    "device_idle_share": f"{max(0.0, 1 - busy / wall_ms):.3f}"}
+
+        def run(block):
+            t0 = time.perf_counter()
+            out = _phase_block(block, dev, brine, phases, sizes)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        # ---- IAPWS-95: the release values on the card
+        card, block_s = run("water")
+        err, worst = compare("water", card, got("water"))
+        _check(abs(float(card["p500"]) / 1e6 - 10.0003858) < 2e-5
+               and abs(float(card["rho298"]) - 997.0476) < 1e-3
+               and abs(float(card["mu0_423"]) / 1e6 + 317.175792) < 2e-6
+               and card["alpha"][0] < 0.0 < card["alpha"][1],
+               f"IAPWS-95 release values on the card: {card}")
+        rho_call = lambda: water.density(298.15, 101325.0,  # noqa: E731
+                                         device=dev)
+        wall = _sync_ms(rho_call, reps=3)
+        T1, P1 = torch.full((), 298.15, dtype=torch.float64, device=dev), \
+            torch.full((), 101325.0, dtype=torch.float64, device=dev)
+        eager_ms = _sync_ms(lambda: water._newton(T1, P1, water._start(
+            T1, P1, water.WATER_LIQUID)), reps=1)
+        _say("19-water", p_500K_838kgm3_MPa=f"{float(card['p500']) / 1e6:.7f}",
+             rho_298K_1atm=f"{float(card['rho298']):.4f}",
+             mu0_423K_kJ_per_gmol=f"{float(card['mu0_423']) / 1e6:.6f}",
+             alpha_276K=f"{card['alpha'][0]:.4g}",
+             alpha_300K=f"{card['alpha'][1]:.4g}",
+             max_rel_err=f"{err:.3g}", tol=PHASE19_TOL["water"],
+             density_eager_ms=f"{eager_ms:.2f}",
+             density_graph_replay_ms=f"{wall:.3f}",
+             **profile(rho_call, wall))
+
+        # ---- Debye-Huckel, the five forms at the two molality sets
+        card, block_s = run("dh")
+        ref = got("dh")
+        err, worst = compare("dh", card, ref)
+        dh = electrolyte.load_debye_huckel(phases, "dh-bdot-ak")
+        m = np.zeros(dh.nspec)
+        for k, v in _DH_MOLALITIES[0].items():
+            m[dh.species_index(k)] = v
+        m = torch.as_tensor(m, device=dev)
+        dh_call = lambda: electrolyte.molality_activity_coefficients(  # noqa
+            dh, m)
+        wall = _sync_ms(dh_call, reps=10)
+        _say("19-debye-huckel", forms=len(DH_PHASES), molality_sets=2,
+             max_rel_err=f"{err:.3g}", worst=worst, tol=PHASE19_TOL["dh"],
+             block_s=f"{block_s:.3f}", gamma_wall_ms=f"{wall:.3f}",
+             host_wall_s=f"{ref['check:host_s']:.2f}",
+             **profile(dh_call, wall))
+
+        # ---- condensed families
+        card, block_s = run("condensed")
+        ref = got("condensed")
+        err, worst = compare("condensed", card, ref)
+        cd = condensed.load_phase(phases, "ideal-solid")
+        X = np.full(3, 1.0 / 3.0)
+        cd_call = lambda: condensed.props(cd, 600.0, 2e6, X,  # noqa: E731
+                                          device=dev)
+        wall = _sync_ms(cd_call, reps=5)
+        _say("19-condensed", families=len(_CONDENSED_PROPS) + 4,
+             max_rel_err=f"{err:.3g}", worst=worst,
+             tol=PHASE19_TOL["condensed"], block_s=f"{block_s:.3f}",
+             props_wall_ms=f"{wall:.3f}",
+             host_wall_s=f"{ref['check:host_s']:.2f}",
+             **profile(cd_call, wall))
+
+        # ---- plasma
+        card, block_s = run("plasma")
+        ref = got("plasma")
+        err, worst = compare("plasma", card, ref)
+        pl = plasma.load_plasma(phases, "plasma-druyvesteyn", device=dev)
+        Xp = np.full(5, 0.2)
+        pl_call = lambda: (pl.h0_RT(300.0), pl.enthalpy_mole(  # noqa: E731
+            300.0, Xp), plasma.two_temp_plasma_rate(
+            3.2e-9, 0.7, 400.0, 1500.0, 500.0, pl.Te, device=dev))
+        wall = _sync_ms(pl_call, reps=5)
+        _say("19-plasma", distributions=len(PLASMA_PHASES),
+             levels=PLASMA_LEVELS,
+             Te_maxwell_K=f"{float(card['plasma-maxwell:Te']):.3f}",
+             Te_druyvesteyn_K=f"{float(card['plasma-druyvesteyn:Te']):.3f}",
+             Te_discretized_K=f"{float(card['plasma-discretized:Te']):.3f}",
+             max_rel_err=f"{err:.3g}", worst=worst,
+             tol=PHASE19_TOL["plasma"], block_s=f"{block_s:.3f}",
+             thermo_rate_wall_ms=f"{wall:.3f}",
+             host_wall_s=f"{ref['check:host_s']:.2f}",
+             **profile(pl_call, wall))
+
+        # ---- HMW seawater, 16 states
+        card, block_s = run("hmw")
+        ref = got("hmw")
+        err, worst = compare("hmw", card, ref)
+        ph = hmw.load_hmw(brine, "seawater")
+        T0, m0 = _hmw_states(ph, PHASE19_HMW_STATES)[0]
+        pmp_call = lambda: hmw.partial_molar_props(  # noqa: E731
+            ph, T0, 101325.0, m0, device=dev)
+        wall = _sync_ms(pmp_call, reps=3)
+        _say("19-hmw", species=counts["species"],
+             interactions=counts["interactions"], states=PHASE19_HMW_STATES,
+             max_rel_err=f"{err:.3g}", worst=worst, tol=PHASE19_TOL["hmw"],
+             block_s=f"{block_s:.2f}",
+             partial_molar_props_wall_ms=f"{wall:.2f}",
+             host_wall_s=f"{ref['check:host_s']:.2f}",
+             **profile(pmp_call, wall))
+
+        # ---- pure fluids
+        card, block_s = run("purefluid")
+        ref = got("purefluid")
+        err, worst = compare("purefluid", card, ref)
+        sat_res = max(v for k, v in card.items() if k.endswith(
+            "sat_residual"))
+        _check(sat_res <= PHASE19_SAT_TOL,
+               f"pure fluids: equal-Gibbs residual {sat_res}")
+        T_l, P_l = _PF_STATES["N2"][1]
+        rho_call = lambda: purefluid.rho_tp(  # noqa: E731
+            purefluid.NITROGEN, T_l, P_l, 800.0, device=dev)
+        wall = _sync_ms(rho_call, reps=3)
+        t0 = time.perf_counter()
+        purefluid.update_sat(purefluid.NITROGEN, _PF_STATES["N2"][0],
+                             device=dev)
+        sat_ms = (time.perf_counter() - t0) * 1e3
+        _say("19-pure-fluids", fluids="N2,CO2",
+             N2_liquid_rho=f"{card['N2:liquid'][0]:.6f}",
+             CO2_psat_280K=f"{card['CO2:sat'][0]:.2f}",
+             sat_residual=f"{sat_res:.3g}", sat_tol=PHASE19_SAT_TOL,
+             max_rel_err=f"{err:.3g}", worst=worst,
+             tol=PHASE19_TOL["purefluid"], block_s=f"{block_s:.2f}",
+             update_sat_ms=f"{sat_ms:.1f}", rho_tp_wall_ms=f"{wall:.2f}",
+             host_wall_s=f"{ref['check:host_s']:.2f}",
+             **profile(rho_call, wall))
+
+        # ---- VCS multiphase
+        card, block_s = run("vcs")
+        ref = got("vcs")
+        err, worst = compare("vcs", card, ref)
+        _check(card["check:outer"] == ref["check:outer"]
+               and card["check:element_err"] <= PHASE19_ELEMENT_TOL
+               and 0.0 < card["check:nacl_s"] < 5.0,
+               f"VCS: outer sweeps {card['check:outer']} card, "
+               f"{ref['check:outer']} host; element error "
+               f"{card['check:element_err']}; NaCl(S) "
+               f"{card['check:nacl_s']}")
+        vcs_call = lambda: _vcs_run(dev, brine, phases)  # noqa: E731
+        _say("19-vcs", outer_sweeps=card["check:outer"],
+             outer_sweeps_host=ref["check:outer"],
+             newton_iters=card["check:newton"],
+             nacl_s_mol=f"{card['check:nacl_s']:.9f}",
+             element_rel_err=f"{card['check:element_err']:.3g}",
+             element_tol=PHASE19_ELEMENT_TOL, max_rel_err=f"{err:.3g}",
+             worst=worst, tol=PHASE19_TOL["vcs"],
+             solve_wall_ms=f"{block_s * 1e3:.1f}",
+             host_wall_s=f"{ref['check:host_s']:.2f}",
+             **profile(vcs_call, block_s * 1e3))
+        # ---- the steam table, its host side started with phase 13
+        T_all, P_all = _steam_grid(PHASE19_STEAM)
+        Td, Pd = T_all.to(dev), P_all.to(dev)
+        card, block_s = run("steam")
+        ref = {}
+        for c, res in steam_host["chunks"].items():
+            part = res.get(timeout=PHASE19_HOST_TIMEOUT)
+            for k, v in part.items():
+                ref.setdefault(k, []).append(v)
+        ops = ref.pop("check:ops_per_state")[0] * n_states
+        host_s = max(ref.pop("check:host_s"))
+        ref = {k: np.concatenate(v) for k, v in ref.items()}
+        err, worst = compare("steam", card, ref)
+        key_errs = {k: _rel_err(card[k], ref[k]) for k in ref}
+        _check(all(key_errs[k] <= t for k, t in PHASE19_STEAM_TIGHT.items())
+               and _rel_err(card["p"], P_all.numpy()) <= 1e-10,
+               f"steam table, card against host CPU: {key_errs}; p(T, rho) "
+               f"against P {_rel_err(card['p'], P_all.numpy())}")
+        table = lambda: _steam_table(Td, Pd)  # noqa: E731
+        wall = _sync_ms(table, reps=1)
+        bound = ops / F64_OPS_PER_S * 1e3
+        _say("19-steam-table", states=n_states, newton_steps=60,
+             **{f"rel_err_{k}": f"{v:.3g}" for k, v in key_errs.items()},
+             tol_rho_h_s=PHASE19_STEAM_TIGHT["rho"],
+             tol_p_alpha=PHASE19_TOL["steam"], ms_per_call=f"{wall:.2f}",
+             us_per_state=f"{wall * 1e3 / n_states:.4f}",
+             element_ops=f"{ops:.4g}", f64_bound_ms=f"{bound:.4f}",
+             bound_share=f"{bound / wall:.4g}",
+             host_wall_s=f"{host_s:.2f}", **profile(table, wall))
+    finally:
+        pool.terminate()
+        pool.join()
+        tmp.cleanup()
+    _say("19-phase-models", phase_s=f"{time.perf_counter() - t_phase:.3f}",
+         hand_kernel_launches=sum(mod.LAUNCHES for mod in launch_mods))
+
+
 def _timed_steps(s, steps: int, step):
     """`steps` synchronized steps of `step(s) -> (s, diag)`: wall s/step,
     inner iterations and host syncs per step, and the last state."""
@@ -4877,22 +5934,29 @@ def main() -> int:
     _deepmd_train(dev)
 
     laps.append((13, time.perf_counter()))
-    # ---- 13: Cantera's NonIdealShockTube at the dodecane size, then phase
-    # 18, with phase 17's multi-rank run beside both in processes of its
+    # ---- 13: Cantera's NonIdealShockTube at the dodecane size, then phases
+    # 18 and 19, with phase 17's multi-rank run beside them in processes of its
     # own; the script waits for that run to end before phase 14, so that
     # phases 14-16 have the card to themselves ----------------------------
     mc_run = _multichip_start()
+    steam_host = None
     try:
+        steam_host = _steam_host_start()
         ig_reactor, ig_final = _cantera_shock_tube(dev)
         laps.append((18, time.perf_counter()))
         # ---- 18: Cantera's 1-D flames, equilibrium, transport and
         # surfaces, in the time phase 13 leaves before phase 17 ends ----
         _cantera_flames(dev, ig_reactor, ig_final)
         del ig_reactor, ig_final
-        laps.append(("17_after_18", time.perf_counter()))
+        laps.append((19, time.perf_counter()))
+        # ---- 19: Cantera's phase models, in what is left of that time --
+        _phase_models(dev, steam_host)
+        laps.append(("17_after_19", time.perf_counter()))
         mc_res = _multichip_wait(mc_run)
     finally:
         _multichip_stop(mc_run)
+        if steam_host is not None:
+            _steam_host_stop(steam_host)
 
     laps.append((14, time.perf_counter()))
     # ---- 14: the rest of regional CitcomS at Cookbook2's size ------------

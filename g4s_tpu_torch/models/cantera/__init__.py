@@ -7,13 +7,15 @@ potentials, VCS with condensed species, HP and UV), mixture-averaged,
 multicomponent and specialty transport, surface phases and interface
 kinetics, SolutionArray, and the 1-D flames (burner, free, counterflow,
 impinging jet) with their steady solves; the integrator is
-g4s_tpu_torch.ops.odeint.bdf_solve.
+g4s_tpu_torch.ops.odeint.bdf_solve. The phase models: IAPWS-95 water
+(water), HKFT standard states and the variable Debye parameter (hkft),
+Pitzer (hmw) and Debye-Huckel (electrolyte) electrolytes, condensed,
+lattice and solution phases (condensed), the tpx pure fluids
+(purefluid), the two-temperature plasma (plasma) and VCS multiphase
+equilibrium with solution phases (vcs_multiphase).
 
-Not ported yet: electrolytes and the other phase models (water, HKFT,
-HMW, condensed, plasma, pure fluids, VCS multiphase; ROADMAP.md queue 1,
-"The Cantera phase models"); the banded BDF, sensitivities, the DAE
-solver and the batched NTC sweep (ROADMAP.md queue 1, "The Cantera
-integrator tail").
+Not ported yet: the banded BDF, sensitivities, the DAE solver and the
+batched NTC sweep (ROADMAP.md queue 1, "The Cantera integrator tail").
 """
 from g4s_tpu_torch.models.cantera.mech import (  # noqa: F401
     Mechanism, load_mechanism, mechanism_from_reference, R_GAS, P_REF,
@@ -44,3 +46,6 @@ from g4s_tpu_torch.models.cantera.transport import (  # noqa: F401
 from g4s_tpu_torch.models.cantera.surface import (  # noqa: F401
     InterfaceKinetics, SurfacePhase, load_interface,
     net_production_rates_interface, advance_coverages)
+from g4s_tpu_torch.models.cantera.electrolyte import (  # noqa: F401
+    DebyeHuckelPhase, load_debye_huckel,
+    molality_activity_coefficients, ionic_strength)

@@ -27,6 +27,7 @@ import torch
 from torch.func import grad, grad_and_value
 
 from g4s_tpu_torch.models.cantera.mech import Mechanism, R_GAS
+from g4s_tpu_torch.sparse.containers import resolve_device
 
 
 def mech_tensor(mech: Mechanism, name: str, like: torch.Tensor):
@@ -56,6 +57,71 @@ def as_scalar(x, like: torch.Tensor) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x
     return torch.as_tensor(x, dtype=like.dtype, device=like.device)
+
+
+def as_tensors(*xs, device="cuda"):
+    """The arguments as tensors: tensors pass through, numbers become 0-d
+    tensors on the first tensor argument's device and dtype, or f64 on
+    `device` when no argument is a tensor. A number is filled on the device
+    (torch.full), which makes the host wait for nothing."""
+    like = next((x for x in xs if isinstance(x, torch.Tensor)), None)
+    if like is None:
+        dev, dtype = resolve_device(device), torch.float64
+    else:
+        dev, dtype = like.device, like.dtype
+    return tuple(x if isinstance(x, torch.Tensor)
+                 else torch.full((), float(x), dtype=dtype, device=dev)
+                 for x in xs)
+
+
+def const_tensor(cache: dict, key, values, like: torch.Tensor):
+    """`values` (numbers or a numpy array) as a tensor on like's device and
+    dtype, cached in `cache` under (key, device, dtype) and made outside any
+    torch.func transform (see mech_tensor)."""
+    k = (key, like.device, like.dtype)
+    t = cache.get(k)
+    if t is None:
+        with torch._C._DisableFuncTorch():
+            t = torch.as_tensor(np.asarray(values, np.float64),
+                                dtype=like.dtype, device=like.device)
+        cache[k] = t
+    return t
+
+
+def graphable(*xs) -> bool:
+    """Plain CUDA tensors outside any torch.func transform and autograd
+    graph: a solve replayed from a CUDA graph gives them the same values,
+    and no derivative is lost."""
+    return (torch._C._functorch.maybe_current_level() is None
+            and all(x.is_cuda and not x.requires_grad
+                    and not torch._C._functorch.is_functorch_wrapped_tensor(x)
+                    for x in xs))
+
+
+def replay(cache: dict, key, fn, *args):
+    """fn(*args) from a CUDA graph captured at the first call with `key`
+    (cached in `cache`): the same kernels on the same values, launched by
+    one replay instead of one by one from the host (an IAPWS density solve
+    is about 24,000 small kernels). The arguments are copied into the
+    graph's inputs and the result is cloned out of its pool."""
+    entry = cache.get(key)
+    if entry is None:
+        static = tuple(a.clone() for a in args)
+        dev = args[0].device
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            fn(*static)     # fills the constant caches before the capture
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn(*static)
+        entry = cache[key] = (graph, static, out)
+    graph, static, out = entry
+    for dst, src in zip(static, args):
+        dst.copy_(src)
+    graph.replay()
+    return out.clone()
 
 
 def _nasa_select(mech: Mechanism, T):

@@ -681,6 +681,38 @@ def test_equilibrium_on_cuda_matches_cpu(cuda, tmp_path):
     assert abs(float(out[0].sum()) - 1.0) <= 1e-12
 
 
+def test_steam_table_on_cuda_matches_cpu(cuda):
+    """torch.func.vmap of the IAPWS-95 density, h, s, p and alpha over a
+    16 x 16 grid of liquid states (chip_smoke.py phase 19's ranges), the
+    card within 1e-12 of the host CPU."""
+    from chip_smoke import _steam_grid, _steam_table
+    T, P = _steam_grid((16, 16))
+    card = _steam_table(T.to(cuda), P.to(cuda))
+    host = _steam_table(T, P)
+    for k, v in host.items():
+        assert (card[k].cpu() - v).abs().max() <= 1e-12 * v.abs().max(), k
+
+
+def test_hmw_partial_molar_props_on_cuda_matches_cpu(cuda, tmp_path):
+    """partial_molar_props and activity_all on chip_smoke.py's synthetic
+    seawater (variable A_Debye, HKFT, Mu0Poly, Shomate and IAPWS standard
+    states) at two states of phase 19's sweep, the card within 1e-10 of
+    the host CPU."""
+    from chip_smoke import _hmw_states, _synthetic_brine_yaml
+    from g4s_tpu_torch.models.cantera import hmw
+    path = str(tmp_path / "brine.yaml")
+    _synthetic_brine_yaml(path, seed=0)
+    ph = hmw.load_hmw(path, "seawater")
+    for T, m in _hmw_states(ph, 2):
+        for f in (lambda d: hmw.partial_molar_props(ph, T, 101325.0, m,
+                                                    device=d),
+                  lambda d: hmw.activity_all(ph, m, T, device=d)):
+            card, host = f(cuda), f("cpu")
+            for k, v in host.items():
+                assert (card[k].cpu() - v).abs().max() \
+                    <= 1e-10 * v.abs().max(), k
+
+
 def _small_citcoms(device, **kw):
     from g4s_tpu_torch.models.citcoms import CitcomModel
     from g4s_tpu_torch.models.citcoms.config import CitcomConfig

@@ -105,7 +105,15 @@ def test_package_imports_no_jax():
             "g4s_tpu_torch.models.cantera.equilibrium, "
             "g4s_tpu_torch.models.cantera.solution_array, "
             "g4s_tpu_torch.models.cantera.surface, "
-            "g4s_tpu_torch.models.cantera.flame; "
+            "g4s_tpu_torch.models.cantera.flame, "
+            "g4s_tpu_torch.models.cantera.water, "
+            "g4s_tpu_torch.models.cantera.condensed, "
+            "g4s_tpu_torch.models.cantera.electrolyte, "
+            "g4s_tpu_torch.models.cantera.hkft, "
+            "g4s_tpu_torch.models.cantera.hmw, "
+            "g4s_tpu_torch.models.cantera.purefluid, "
+            "g4s_tpu_torch.models.cantera.plasma, "
+            "g4s_tpu_torch.models.cantera.vcs_multiphase; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'g4s_tpu.')) or m == 'g4s_tpu'); "
             "print(bad); sys.exit(1 if bad else 0)")
