@@ -43,7 +43,11 @@ Run from the root of a checkout: `python3 chip_smoke.py`. It
   7. the SpGEMM path, mxm, at bench.py's sizes (Erdos-Renyi n = 2^15 and
      2^17 of average degree 16, the RMAT-like 2^15 x 2^19): it must take
      the ESC engine, give C's indptr/indices equal to scipy's and values
-     within a relative 1e-5 of scipy f64; plan and numeric times beside
+     within a relative 1e-5 of scipy f64; its host plan runs in the
+     native plan core (g4s_tpu_torch/runtime/native/host_kernels.cc,
+     built by g++ at the phase's start: build seconds printed) and is
+     timed again in numpy (use_native=False), the two plans array for
+     array equal, beside esc_plan_device; plan and numeric times beside
      the wall time of torch.sparse.mm (cuSPARSE SpGEMM, which waits on the
      device itself; a yardstick only); the same for the corpus's
      real-structure member, the CitcomS Cookbook2 velocity stiffness K
@@ -304,6 +308,32 @@ Run from the root of a checkout: `python3 chip_smoke.py`. It
      ms of one call of its main function and that call's device kernels,
      busy ms and idle share. No Pallas kernel lies on this path in the
      reference, so no hand kernel does here (launch counts printed, 0).
+ 20. the integrator tail, f64: (1) ShockTubeBenchmark.run_ntc_sweep_batched
+     (one lockstep batched BDF per phase, every case a lane) at phase 13's
+     mechanism, pressure and tolerances over NTC_BATCH_TEMPS, t_end cut to
+     NTC_BATCH_T_END (just past the latest lane's OH peak), run in a
+     spawned process of its own from the start of phase 13 beside phases
+     13, 18 and 19: each lane's tau within NTC_BATCH_TOL of its in-turn
+     ignition_delay (1000 K: phase 13's run on the card; the other lanes:
+     the host CPU, in spawned one-thread processes beside phases 14-16),
+     with the batch's wall s, lockstep iterations and host reads, a
+     window's kernels, busy ms, wall and idle share per iteration, an
+     in-turn window's ms per step in the same process and the estimate of
+     the in-turn over the batched wall they give, beside phase 13's
+     in-turn walls and phase 17's sweep; (2)
+     bdf_solve(bandwidth=(3, 3)) on tests/test_banded.py's Brusselator at
+     BRUSS_POINTS points (n = 4,000) to BRUSS_T_END, the card against the
+     host CPU within PHASE20_TOL and against the dense path on the card
+     within BRUSS_DENSE_TOL, s per step, the device activities (the
+     profiler's count), busy ms and wall ms of a band factor and a band
+     solve, the dense LU's ms; (3) dae_solve and
+     bdf_solve_with_sensitivities on Robertson, the card against the host
+     CPU within PHASE20_TOL; (4) a C program built with gcc against
+     g4s_tpu_torch/runtime/native/capi.c evaluates phase 10's water model,
+     frozen in f64, at its 192-atom frame on the card (G4S_TORCH_DEVICE),
+     E and F within PHASE20_TOL of DeepPot.eval. No Pallas kernel lies on
+     this path in the reference (its banded, BDF, DAE and sensitivity
+     code is jnp and lax), so no hand kernel does here.
 Device times are medians per call between back-to-back calls queued
 behind a device sleep (g4s_tpu_torch.obs.timings.device_ms); "cold" times
 flush L2 before each call, outside its event pair. Each phase
@@ -311,6 +341,9 @@ prints one line; any failure raises. The line before the last is the
 card's name and power limit, the one before it a JSON object describing
 each kernel; the last is the result line. Fails (exit code 1, no result
 line) without CUDA or outside the repo.
+
+`python3 chip_smoke.py --batch-overlap` runs only _batch_overlap: phase
+13's RK steps alone and beside phase 20's batch, on one host.
 """
 
 from __future__ import annotations
@@ -324,12 +357,13 @@ import re
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 REL_TOL = 1e-5
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory, published
-F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
-F64_OPS_PER_S = 34e12         # H100 SXM float64 outside the tensor cores
+# the card's published device-memory rate and float32/float64 rates outside
+# the tensor cores, set by main() from g4s_tpu_torch.obs.profile.PEAKS
+HBM_BYTES_PER_S = F32_OPS_PER_S = F64_OPS_PER_S = None
 # Cookbook2 against the blessed f64 trajectory, which the reference computed
 # in f64 on the CPU. Rounding alone moves that trajectory: the initial
 # solve's inner CG amplifies a difference of one rounding about 2.6-fold per
@@ -3011,7 +3045,8 @@ def _cantera_shock_tube(dev) -> None:
     CANTERA_T_RISE, and the RK tau apart from the IG tau. (2b) The RK
     advance to tau/2 run twice: the states within CANTERA_REPEAT_TOL. No hand kernel lies on this path (launch counts
     printed, 0). Returns the ideal-gas reactor and its final state, for
-    phase 18."""
+    phase 18, and the 1000 K case's tau, wall s and steps per phase, for
+    phase 20."""
     import tempfile
 
     import numpy as np
@@ -3208,7 +3243,10 @@ def _cantera_shock_tube(dev) -> None:
          cpu_run_single_s=f"{cpu_s:.3f}",
          cpu_run_waited_s=f"{cpu_wait_s:.3f}",
          hand_kernel_launches=sum(mod.LAUNCHES for mod in launch_mods))
-    return bench.r_ig, out["result_IG"].y
+    return bench.r_ig, out["result_IG"].y, {
+        "T": T0, **{f"{k}_{ph}": v for ph in ("RG", "IG") for k, v in (
+            ("tau", out[f"tau_{ph}"]), ("wall", out[f"wall_{ph}"]),
+            ("steps", out[f"result_{ph}"].steps))}}
 
 
 def _flame_inlets(mech):
@@ -5006,6 +5044,561 @@ def _static_kernels(dev, ws, x_pad, a_p, err, ms, plain_ms, library_ms,
         del a_rows
 
 
+# ---- phase 20: the integrator tail ----------------------------------------
+# The lockstep batched NTC sweep at the dodecane size (phase 13's mechanism
+# and tolerances), cut to fit: at least 4 temperatures over 800-1250 K with
+# 1000 K among them, t_end just past the latest lane's OH peak (the steps
+# before a peak do not depend on t_end), in a process of its own beside
+# phases 13, 18 and 19. Each lane's tau is held to the in-turn
+# ignition_delay of its case within NTC_BATCH_TOL: at 1000 K phase 13's run
+# on the card, the others on the host CPU in spawned one-thread processes
+# beside phases 14-16.
+NTC_BATCH_TEMPS = (800.0, 1000.0, 1100.0, 1250.0)
+# the lanes' OH peaks on the H100 at the protocol's 5 ms: 2.284, 3.043,
+# 0.733 and 0.120 ms (RK; IG within 1.4 % of them; PERF.md section 6)
+NTC_BATCH_T_END = 3.1e-3
+NTC_BATCH_RTOL, NTC_BATCH_ATOL = 1e-8, 1e-14      # phase 13's
+NTC_BATCH_TOL = 1e-8
+NTC_BATCH_TIMEOUT = 900
+# the Brusselator of tests/test_banded.py at BRUSS_POINTS grid points
+# (n = 2 * BRUSS_POINTS), integrated to BRUSS_T_END with the banded and the
+# dense Newton paths
+BRUSS_POINTS = 2000
+BRUSS_T_END = 2e-3
+BRUSS_RTOL, BRUSS_ATOL = 1e-6, 1e-9
+BRUSS_DENSE_TOL = 1e-6
+PHASE20_TOL = 1e-10
+PHASE20_HOST_PROCS = 4
+PHASE20_HOST_TIMEOUT = 900
+
+
+def _brusselator(n_pts: int):
+    """tests/test_banded.py's 1-D Brusselator MOL right-hand side (two
+    species interleaved, nearest-neighbour diffusion: half-bandwidth 3) and
+    its initial state."""
+    import math
+    import torch
+    A, B, D = 1.0, 3.0, 0.02
+    h2 = (1.0 / (n_pts + 1)) ** 2
+
+    def rhs(t, y):
+        u, v = y[0::2], y[1::2]
+        up = torch.nn.functional.pad(u, (1, 1), value=A)
+        vp = torch.nn.functional.pad(v, (1, 1), value=B / A)
+        du = A - (B + 1) * u + u * u * v + D * (up[2:] - 2 * u + up[:-2]) / h2
+        dv = B * u - u * u * v + D * (vp[2:] - 2 * v + vp[:-2]) / h2
+        return torch.stack([du, dv], dim=1).reshape(-1)
+
+    x = torch.linspace(0.0, 1.0, n_pts, dtype=torch.float64)
+    y0 = torch.stack([1.0 + 0.1 * torch.sin(math.pi * x),
+                      torch.full_like(x, 3.0)], dim=1).reshape(-1)
+    return rhs, y0
+
+
+def _robertson():
+    """Robertson's kinetics with its rate constants as parameters, its
+    index-1 DAE form (the third equation the conservation law), and the
+    consistent initial state and derivative."""
+    import torch
+
+    def f_p(p, t, y):
+        return torch.stack([-p[0] * y[0] + p[2] * y[1] * y[2],
+                            p[0] * y[0] - p[1] * y[1] ** 2
+                            - p[2] * y[1] * y[2], p[1] * y[1] ** 2])
+
+    def F(t, y, yp):
+        return torch.stack([yp[0] + 0.04 * y[0] - 1e4 * y[1] * y[2],
+                            yp[1] - 0.04 * y[0] + 3e7 * y[1] ** 2
+                            + 1e4 * y[1] * y[2], y[0] + y[1] + y[2] - 1.0])
+
+    p0 = torch.tensor([0.04, 3e7, 1e4], dtype=torch.float64)
+    y0 = torch.tensor([1.0, 0.0, 0.0], dtype=torch.float64)
+    return f_p, F, p0, y0, f_p(p0, 0.0, y0)
+
+
+def _tail_solves(device):
+    """Phase 20's Robertson DAE (to t = 100, rtol 1e-9, atol 1e-12) and
+    forward sensitivities (to t = 10, rtol 1e-8, atol 1e-12) on `device`,
+    as host arrays with their step counts."""
+    from g4s_tpu_torch.ops import odeint
+    f_p, F, p0, y0, yd0 = _robertson()
+    dae = odeint.dae_solve(F, y0.to(device), yd0.to(device), 0.0, 100.0,
+                           rtol=1e-9, atol=1e-12)
+    res, sens = odeint.bdf_solve_with_sensitivities(
+        f_p, p0.to(device), y0.to(device), 0.0, 10.0, rtol=1e-8, atol=1e-12)
+    return {"dae_y": dae.y.cpu().numpy(), "dae_steps": dae.steps,
+            "dae_success": dae.success, "sens_y": res.y.cpu().numpy(),
+            "sens": sens.cpu().numpy(), "sens_steps": res.steps,
+            "sens_success": res.success}
+
+
+def _tail_host(task: str, kw: dict) -> dict:
+    """Phase 20's host-CPU references, one torch thread, in a spawned
+    process: "tau" (one in-turn ignition_delay case), "bruss" (the banded
+    Brusselator run) and "solves" (_tail_solves)."""
+    import torch
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    if task == "tau":
+        from g4s_tpu_torch.models.cantera import (IdealGasConstVolumeReactor,
+                                                  ignition_delay,
+                                                  load_mechanism,
+                                                  stoich_mixture)
+        mech = load_mechanism(kw["path"], kw["phase"])
+        r = IdealGasConstVolumeReactor(mech, real_gas=kw["real_gas"],
+                                       device="cpu")
+        tau, res = ignition_delay(r, kw["T0"], kw["P0"],
+                                  stoich_mixture(mech), t_end=kw["t_end"],
+                                  rtol=kw["rtol"], atol=kw["atol"])
+        out = {"tau": tau, "steps": res.steps}
+    elif task == "bruss":
+        from g4s_tpu_torch.ops import odeint
+        rhs, y0 = _brusselator(kw["n_pts"])
+        res = odeint.bdf_solve(rhs, y0, 0.0, kw["t_end"], rtol=kw["rtol"],
+                               atol=kw["atol"], bandwidth=(3, 3))
+        out = {"y": res.y.numpy(), "steps": res.steps}
+    else:
+        out = _tail_solves(torch.device("cpu"))
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def _ntc_batch_run(path: str, temps, t_end: float, rtol: float,
+                   atol: float, device: str = "cuda") -> dict:
+    """Phase 20's batched sweep, in a spawned process of its own on the
+    card: ShockTubeBenchmark.run_ntc_sweep_batched over `temps` at 40 atm,
+    both phases; then, per phase, a window of CANTERA_WINDOW lockstep
+    iterations from the cases' initial states, profiled (device kernels
+    and busy ms per iteration) and timed, and a window in turn: the lane
+    at 1000 K alone, CANTERA_WINDOW bdf_solve steps from its initial
+    state, timed in this process. Returns the taus,
+    walls, iterations, per-lane steps and host reads and the windows'
+    numbers."""
+    import torch
+    from g4s_tpu_torch.models.cantera import ShockTubeBenchmark, \
+        stoich_mixture
+    from g4s_tpu_torch.obs.timings import device_activities
+    from g4s_tpu_torch.ops.odeint import _bdf_solve_batched, bdf_solve
+    torch.set_num_threads(1)
+    dev = torch.device(device)
+    P0 = 40 * 101325.0
+    bench = ShockTubeBenchmark(path, device=dev)
+    out = bench.run_ntc_sweep_batched(list(temps), P0, t_end=t_end,
+                                      rtol=rtol, atol=atol)
+    res = {"T": out["T"]}
+    for name, r in (("RG", bench.r_rk), ("IG", bench.r_ig)):
+        b = out[f"result_{name}"]
+        y0 = torch.stack([r.initial_state(T, P0, stoich_mixture(r.mech))
+                          for T in temps])
+
+        def window():
+            return _bdf_solve_batched(r.rhs, y0, 0.0, t_end, rtol=rtol,
+                                      atol=atol, max_steps=CANTERA_WINDOW)
+
+        def in_turn():
+            return bdf_solve(r.rhs, y0[list(temps).index(1000.0)], 0.0,
+                             t_end, rtol=rtol, atol=atol,
+                             max_steps=CANTERA_WINDOW)
+
+        def timed(fn):
+            t0 = time.perf_counter()
+            out = fn()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            return out, time.perf_counter() - t0
+        # the card's activities (none are recorded on the CPU)
+        acts = device_activities(window) if dev.type == "cuda" else []
+        w, w_s = timed(window)
+        one, one_s = timed(in_turn)
+        iters = int(w.steps.max())
+        res[name] = {
+            "tau": out[f"tau_{name}"], "wall_s": out[f"wall_{name}"],
+            "iterations": int(b.steps.max()), "steps": b.steps.tolist(),
+            "n_jev": b.n_jev.tolist(), "host_reads": b.host_reads,
+            "success": bool(b.success.all()),
+            "window_iterations": iters,
+            "window_kernels_per_iteration": len(acts) / iters,
+            "window_busy_ms_per_iteration":
+                sum(us for _, us in acts) / 1e3 / iters,
+            "window_wall_ms_per_iteration": w_s * 1e3 / iters,
+            "in_turn_window_steps": one.steps,
+            "in_turn_window_wall_ms_per_step": one_s * 1e3 / one.steps}
+    return res
+
+
+def _ntc_batch_start(path: str) -> dict:
+    """Start phase 20's batched sweep in a spawned process (Pool of 1)."""
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    return {"pool": pool, "t0": time.perf_counter(),
+            "res": pool.apply_async(_ntc_batch_run, (
+                path, NTC_BATCH_TEMPS, NTC_BATCH_T_END, NTC_BATCH_RTOL,
+                NTC_BATCH_ATOL))}
+
+
+def _tail_host_start(path: str, dev_taus: dict) -> dict:
+    """Start phase 20's host-CPU references in PHASE20_HOST_PROCS spawned
+    one-thread processes: the in-turn cases of the batch's lanes that no
+    card phase runs (every temperature but 1000 K, both phases), the banded
+    Brusselator run and the Robertson solves."""
+    pool = multiprocessing.get_context("spawn").Pool(PHASE20_HOST_PROCS)
+    jobs = {}
+    for T in NTC_BATCH_TEMPS:
+        if T in dev_taus:
+            continue
+        for name, phase, real in (("RG", "nDodecane_RK", True),
+                                  ("IG", "nDodecane_IG", False)):
+            jobs[(name, T)] = pool.apply_async(_tail_host, ("tau", dict(
+                path=path, phase=phase, real_gas=real, T0=T,
+                P0=40 * 101325.0, t_end=NTC_BATCH_T_END,
+                rtol=NTC_BATCH_RTOL, atol=NTC_BATCH_ATOL)))
+    jobs["bruss"] = pool.apply_async(_tail_host, ("bruss", dict(
+        n_pts=BRUSS_POINTS, t_end=BRUSS_T_END, rtol=BRUSS_RTOL,
+        atol=BRUSS_ATOL)))
+    jobs["solves"] = pool.apply_async(_tail_host, ("solves", {}))
+    return {"pool": pool, "jobs": jobs}
+
+
+def _pool_stop(run) -> None:
+    if run is not None:
+        run["pool"].terminate()
+        run["pool"].join()
+
+
+CAPI_FRAME_MAIN = r"""
+#include <stdio.h>
+#include <stdlib.h>
+extern int g4s_init(const char*);
+extern int g4s_deeppot_load(const char*);
+extern int g4s_deeppot_eval(int, int, const double*, const double*,
+                            const int*, double*, double*, double*);
+/* argv: repo frozen natoms coord.bin box.bin types.bin out.bin */
+static void* slurp(const char* path, size_t n) {
+  void* buf = malloc(n);
+  FILE* f = fopen(path, "rb");
+  if (!f || fread(buf, 1, n, f) != n) exit(9);
+  fclose(f);
+  return buf;
+}
+int main(int argc, char** argv) {
+  int n = atoi(argv[3]);
+  double* coord = slurp(argv[4], (size_t)n * 3 * sizeof(double));
+  double* box = slurp(argv[5], 9 * sizeof(double));
+  int* types = slurp(argv[6], (size_t)n * sizeof(int));
+  double e, v[9];
+  double* f = malloc((size_t)n * 3 * sizeof(double));
+  if (g4s_init(argv[1])) return 1;
+  int h = g4s_deeppot_load(argv[2]);
+  if (h < 0) return 2;
+  if (g4s_deeppot_eval(h, n, coord, box, types, &e, f, v)) return 3;
+  FILE* o = fopen(argv[7], "wb");
+  fwrite(&e, sizeof(double), 1, o);
+  fwrite(f, sizeof(double), (size_t)n * 3, o);
+  fclose(o);
+  printf("CAPI_OK natoms=%d e=%.17g\n", n, e);
+  return 0;
+}
+"""
+
+
+def _capi_frame(dev) -> dict:
+    """Phase 20's C API check: a C program built against
+    g4s_tpu_torch/runtime/native/capi.c (capi_impl.build_capi, the running
+    interpreter's embedding flags) evaluates phase 10's water model
+    (WATER_SPEC, weights from torch.Generator().manual_seed(1)), frozen in
+    f64, at phase 10's 192-atom frame, on the card (G4S_TORCH_DEVICE=cuda);
+    E and F against DeepPot.eval in this process."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from g4s_tpu_torch.models.deepmd import (WATER_SPEC, DeepPot, freeze,
+                                             init_params)
+    from g4s_tpu_torch.models.deepmd.model import params_to
+    from g4s_tpu_torch.runtime import capi_impl
+    gcc = shutil.which("gcc") or shutil.which("cc")
+    _check(gcc is not None and capi_impl.libpython_path() is not None,
+           f"C API: compiler {gcc}, libpython {capi_impl.libpython_path()}")
+    rng = np.random.default_rng(0)
+    n, L = 192, 12.444661
+    types = np.concatenate([np.zeros(64, np.int32), np.ones(128, np.int32)])
+    coord = rng.uniform(0, L, size=(n, 3))
+    box = np.eye(3) * L
+    params = params_to(init_params(torch.Generator().manual_seed(1),
+                                   WATER_SPEC), dtype=torch.float64)
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        frozen = os.path.join(tmp, "water_f64.npz")
+        freeze(params, WATER_SPEC, frozen, type_map=["O", "H"])
+        for name, arr in (("coord", coord), ("box", box), ("types", types)):
+            arr.tofile(os.path.join(tmp, f"{name}.bin"))
+        t0 = time.perf_counter()
+        capi_impl.build_capi(tmp)
+        with open(os.path.join(tmp, "main.c"), "w") as f:
+            f.write(CAPI_FRAME_MAIN)
+        _, ld = capi_impl.embed_flags()
+        subprocess.run([gcc, os.path.join(tmp, "main.c"), "-o",
+                        os.path.join(tmp, "frame"), f"-L{tmp}",
+                        "-lg4s_torch_capi", f"-Wl,-rpath,{tmp}"] + ld,
+                       check=True, capture_output=True)
+        build_s = time.perf_counter() - t0
+        env = dict(os.environ, G4S_TORCH_DEVICE=dev.type,
+                   PYTHONPATH=os.pathsep.join(p for p in sys.path if p))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [os.path.join(tmp, "frame"), here, frozen, str(n)]
+            + [os.path.join(tmp, f"{k}.bin") for k in ("coord", "box",
+                                                       "types", "out")],
+            env=env, capture_output=True, text=True, timeout=300)
+        run_s = time.perf_counter() - t0
+        _check(proc.returncode == 0, f"C API program exited "
+               f"{proc.returncode}: {proc.stdout[-2000:]}"
+               f"{proc.stderr[-4000:]}")
+        out = np.fromfile(os.path.join(tmp, "out.bin"), np.float64)
+        e_ref, f_ref, _ = DeepPot(frozen, device=dev).eval(coord, box,
+                                                           types)
+    e_ref = float(e_ref.cpu())
+    f_ref = f_ref.cpu().numpy().reshape(-1)
+    errs = {"E": abs(out[0] - e_ref) / abs(e_ref),
+            "F": _rel_err(out[1:], f_ref)}
+    _check(max(errs.values()) <= PHASE20_TOL,
+           f"C API program against DeepPot.eval on the card: {errs}")
+    return {"e": out[0], "errs": errs, "build_s": build_s, "run_s": run_s}
+
+
+def _integrator_tail(dev, batch: dict, host: dict, p13: dict,
+                     mc_res: dict) -> None:
+    """Phase 20: the integrator tail on the card, f64. (1) The batched NTC
+    sweep's results (started with phase 13 in a process of its own): each
+    lane's tau within NTC_BATCH_TOL of its in-turn case (1000 K: phase 13's
+    card run; the others: the host CPU), with the batch's wall s, lockstep
+    iterations, host reads and the window's kernels, busy ms, wall and
+    idle share per iteration, an in-turn window's ms per step from the
+    same process and the estimate of the in-turn sweep's wall over the
+    batch's they give, beside phase 13's in-turn walls and phase 17's
+    sweep. (2) The banded BDF on the Brusselator at BRUSS_POINTS points:
+    the card against the host CPU within PHASE20_TOL and against the dense
+    path on the card within BRUSS_DENSE_TOL; s per step, the device
+    activities (the profiler's count), busy ms and wall ms of one band
+    factor and of one band solve, and the dense LU's ms. (3) dae_solve
+    and bdf_solve_with_sensitivities on Robertson, the card against the
+    host CPU within PHASE20_TOL. (4) The C API at phase 10's frame
+    (_capi_frame)."""
+    import numpy as np
+    import torch
+
+    from g4s_tpu_torch.ops import banded, odeint
+    from g4s_tpu_torch.obs.timings import device_activities, device_ms
+
+    t_phase = time.perf_counter()
+    # ---- 1: the batched sweep ----
+    t0 = time.perf_counter()
+    b = batch["res"].get(timeout=max(
+        1.0, NTC_BATCH_TIMEOUT - (time.perf_counter() - batch["t0"])))
+    batch_wait_s = time.perf_counter() - t0
+    host_res = {}
+    for key, job in host["jobs"].items():
+        host_res[key] = job.get(timeout=PHASE20_HOST_TIMEOUT)
+    temps = b["T"]
+    for name in ("RG", "IG"):
+        r = b[name]
+        errs = []
+        for T, tau in zip(temps, r["tau"]):
+            ref = p13[f"tau_{name}"] if T == p13["T"] \
+                else host_res[(name, T)]["tau"]
+            errs.append(abs(tau - ref) / ref)
+        _check(r["success"] and max(errs) <= NTC_BATCH_TOL
+               and max(r["tau"]) < NTC_BATCH_T_END,
+               f"batched sweep {name}: taus {r['tau']}, rel errs {errs}, "
+               f"success {r['success']}")
+        wall_it = r["wall_s"] * 1e3 / r["iterations"]
+        busy_it = r["window_busy_ms_per_iteration"]
+        w_it = r["window_wall_ms_per_iteration"]
+        one_it = r["in_turn_window_wall_ms_per_step"]
+        _say(f"20-ntc-batched-{name}", lanes=len(temps),
+             T=",".join(f"{t:g}" for t in temps),
+             t_end_ms=f"{NTC_BATCH_T_END * 1e3:.4f}",
+             tau_us=",".join(f"{t * 1e6:.4f}" for t in r["tau"]),
+             tau_rel_err_vs_in_turn=",".join(f"{e:.3g}" for e in errs),
+             tol=NTC_BATCH_TOL, in_turn_ref="1000K:card_phase13,"
+             "others:host_cpu", steps_per_lane=",".join(map(str, r["steps"])),
+             lockstep_iterations=r["iterations"], host_reads=r["host_reads"],
+             wall_s=f"{r['wall_s']:.3f}",
+             wall_ms_per_iteration=f"{wall_it:.3f}",
+             window_kernels_per_iteration=
+             f"{r['window_kernels_per_iteration']:.1f}",
+             window_busy_ms_per_iteration=f"{busy_it:.4f}",
+             window_wall_ms_per_iteration=f"{w_it:.3f}",
+             # the window's busy ms over the same window's wall
+             window_device_idle_share=f"{max(0.0, 1 - busy_it / w_it):.3f}",
+             in_turn_window_steps=r["in_turn_window_steps"],
+             in_turn_window_wall_ms_per_step=f"{one_it:.3f}",
+             # an estimate, not a run: the lanes' steps at the in-turn
+             # window's ms per step over the lockstep iterations at the
+             # batched window's ms per iteration
+             in_turn_over_batch_estimate=
+             f"{sum(r['steps']) * one_it / (r['iterations'] * w_it):.3f}",
+             in_turn_card_wall_s_1000K=f"{p13[f'wall_{name}']:.3f}",
+             in_turn_card_steps_1000K=p13[f"steps_{name}"],
+             host_cpu_in_turn_wall_s=",".join(
+                 f"{host_res[(name, T)]['wall_s']:.1f}" for T in temps
+                 if T != p13["T"]))
+    ntc = mc_res["ntc"]
+    _say("20-ntc-batched", batch_wait_s=f"{batch_wait_s:.1f}",
+         phase17_in_turn_cases=len(ntc["T"]),
+         phase17_in_turn_sweep_s=f"{ntc['sweep_s']:.1f}")
+
+    # ---- 2: the banded BDF on the Brusselator ----
+    rhs, y0 = _brusselator(BRUSS_POINTS)
+    y0 = y0.to(dev)
+    kw = dict(rtol=BRUSS_RTOL, atol=BRUSS_ATOL)
+    t0 = time.perf_counter()
+    band = odeint.bdf_solve(rhs, y0, 0.0, BRUSS_T_END, bandwidth=(3, 3), **kw)
+    torch.cuda.synchronize()
+    band_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dense = odeint.bdf_solve(rhs, y0, 0.0, BRUSS_T_END, **kw)
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t0
+    hb = host_res["bruss"]
+    err_host = _rel_err(band.y.cpu(), hb["y"])
+    err_dense = _rel_err(band.y.cpu(), dense.y.cpu())
+    _check(band.success and dense.success and err_host <= PHASE20_TOL
+           and err_dense <= BRUSS_DENSE_TOL,
+           f"banded Brusselator: card vs host CPU {err_host}, vs dense "
+           f"{err_dense}")
+    n = y0.shape[0]
+    Jb = banded.banded_jac(rhs, 0.0, y0, 3, 3)
+    fac = banded.newton_band_factor(Jb, 1e-3, ml=3, mu=3)
+
+    def factor():
+        return banded.newton_band_factor(Jb, 1e-3, ml=3, mu=3)
+
+    def solve():
+        return banded.band_solve(fac, y0, ml=3, mu=3)
+    # the profiler's device activities (kernels, copies, fills) of one
+    # factor and one solve
+    acts_f = device_activities(factor)
+    acts_s = device_activities(solve)
+    factor_ms = _sync_ms(factor, reps=3)
+    solve_ms = _sync_ms(solve, reps=3)
+    Jd = torch.func.jacfwd(rhs, argnums=1)(0.0, y0)
+    eye = torch.eye(n, dtype=Jd.dtype, device=dev)
+    lu_ms = device_ms(lambda: torch.linalg.lu_factor_ex(eye - 1e-3 * Jd),
+                      device=dev, reps=10)
+    _say("20-banded-bdf", points=BRUSS_POINTS, n=n, ml=3, mu=3,
+         t_end=BRUSS_T_END, rtol=BRUSS_RTOL, atol=BRUSS_ATOL,
+         steps=band.steps, n_fev=band.n_fev, n_jev=band.n_jev,
+         rel_err_vs_host_cpu=f"{err_host:.3g}", tol=PHASE20_TOL,
+         rel_err_vs_dense=f"{err_dense:.3g}", dense_tol=BRUSS_DENSE_TOL,
+         banded_s_per_step=f"{band_s / band.steps:.4f}",
+         dense_s_per_step=f"{dense_s / dense.steps:.4f}",
+         dense_steps=dense.steps, host_cpu_banded_s=f"{hb['wall_s']:.2f}",
+         band_factor_device_activities=len(acts_f),
+         band_factor_busy_ms=f"{sum(us for _, us in acts_f) / 1e3:.2f}",
+         band_factor_ms=f"{factor_ms:.2f}",
+         band_solve_device_activities=len(acts_s),
+         band_solve_busy_ms=f"{sum(us for _, us in acts_s) / 1e3:.2f}",
+         band_solve_ms=f"{solve_ms:.2f}", dense_lu_ms=f"{lu_ms:.3f}")
+    del Jd, eye, dense, band
+
+    # ---- 3: the DAE and the sensitivities on Robertson ----
+    got = _tail_solves(dev)
+    want = host_res["solves"]
+    errs = {k: _rel_err(got[k], want[k]) for k in ("dae_y", "sens_y",
+                                                    "sens")}
+    _check(got["dae_success"] and got["sens_success"]
+           and max(errs.values()) <= PHASE20_TOL
+           and abs(float(got["dae_y"].sum()) - 1.0) < 1e-10,
+           f"DAE / sensitivities, card against host CPU: {errs}")
+    _say("20-dae-sens", dae_steps=got["dae_steps"],
+         dae_steps_host=want["dae_steps"], sens_steps=got["sens_steps"],
+         sens_steps_host=want["sens_steps"],
+         **{f"{k}_rel_err_vs_host_cpu": f"{v:.3g}" for k, v in errs.items()},
+         tol=PHASE20_TOL,
+         dk1_dy=",".join(f"{x:.6g}" for x in got["sens"][:, 0]))
+
+    # ---- 4: the C API ----
+    c = _capi_frame(dev)
+    _say("20-capi", atoms=192, model="WATER_SPEC f64", e=f"{c['e']:.12g}",
+         rel_err_vs_deeppot=json.dumps({k: f"{v:.3g}" for k, v in
+                                        c["errs"].items()}).replace(" ", ""),
+         tol=PHASE20_TOL, build_s=f"{c['build_s']:.2f}",
+         program_s=f"{c['run_s']:.2f}")
+    _say("20-integrator-tail", seconds=f"{time.perf_counter() - t_phase:.1f}")
+
+
+# `--batch-overlap`: phase 13's RK case advanced this many BDF steps from
+# its initial state, BATCH_OVERLAP_RUNS times in each setting
+BATCH_OVERLAP_STEPS = 200
+BATCH_OVERLAP_RUNS = 3
+BATCH_OVERLAP_START_S = 40.0
+
+
+def _batch_overlap(dev) -> int:
+    """`python3 chip_smoke.py --batch-overlap`: whether phase 20's batch,
+    which runs beside phase 13 in a process of its own, slows phase 13's
+    host-bound BDF steps. Phase 13's RK case (1000 K, 40 atm, rtol 1e-8,
+    atol 1e-14) is advanced BATCH_OVERLAP_STEPS steps from its initial
+    state on the card, BATCH_OVERLAP_RUNS times in each of three settings
+    in turn: alone; while _ntc_batch_run runs (started
+    BATCH_OVERLAP_START_S before, so that it is past its set-up, and
+    checked still running after); and alone again after that process is
+    ended. Prints the ms per step of every run, with its steps and
+    Jacobians (the same work in every run), and the host's load."""
+    import torch
+    from g4s_tpu_torch.models.cantera import ShockTubeBenchmark, \
+        stoich_mixture
+    from g4s_tpu_torch.ops import odeint
+    tmp = tempfile.TemporaryDirectory()
+    path = os.path.join(tmp.name, "ndodecane_synthetic.yaml")
+    _synthetic_mechanism_yaml(path, seed=CANTERA_SEED, **CANTERA_COUNTS)
+    r = ShockTubeBenchmark(path, device=dev).r_rk
+    y0 = r.initial_state(1000.0, 40 * 101325.0, stoich_mixture(r.mech))
+
+    def run(steps):
+        t0 = time.perf_counter()
+        res = odeint.bdf_solve(r.rhs, y0, 0.0, NTC_BATCH_T_END,
+                               rtol=NTC_BATCH_RTOL, atol=NTC_BATCH_ATOL,
+                               max_steps=steps)
+        torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t0) * 1e3 / res.steps, res
+
+    run(10)                                            # warm-up
+    walls = {}
+    batch = None
+    try:
+        for setting in ("alone", "beside_batch", "alone_after"):
+            if setting == "beside_batch":
+                batch = _ntc_batch_start(path)
+                time.sleep(BATCH_OVERLAP_START_S)
+            if setting == "alone_after":
+                _check(not batch["res"].ready(),
+                       "the batch ended before the runs beside it did")
+                _pool_stop(batch)
+                batch = None
+            for i in range(BATCH_OVERLAP_RUNS):
+                ms, res = run(BATCH_OVERLAP_STEPS)
+                walls.setdefault(setting, []).append(ms)
+                _say("batch-overlap-run", setting=setting, run=i,
+                     steps=res.steps, n_jev=res.n_jev,
+                     ms_per_step=f"{ms:.4f}",
+                     load_1min=f"{os.getloadavg()[0]:.2f}")
+    finally:
+        _pool_stop(batch)
+        tmp.cleanup()
+    alone = walls["alone"] + walls["alone_after"]
+    beside = walls["beside_batch"]
+    ratio = (sum(beside) / len(beside)) / (sum(alone) / len(alone))
+    _say("batch-overlap", steps=BATCH_OVERLAP_STEPS,
+         alone_ms_per_step=",".join(f"{x:.4f}" for x in alone),
+         beside_batch_ms_per_step=",".join(f"{x:.4f}" for x in beside),
+         beside_over_alone_mean=f"{ratio:.4f}",
+         host_cpus=os.cpu_count())
+    return 0
+
+
 def _multichip_start() -> dict:
     """Phase 17, first part: write the dodecane-size mechanism and start
     the multi-rank dry run at full width (g4s_tpu_torch/drivers/multichip.py
@@ -5183,6 +5776,18 @@ def main() -> int:
     # a SIGTERM ends the script through its finally blocks, which stop
     # the processes it started
     signal.signal(signal.SIGTERM, lambda signum, frame: sys.exit(143))
+    global HBM_BYTES_PER_S, F32_OPS_PER_S, F64_OPS_PER_S
+    from g4s_tpu_torch.obs.profile import PEAKS, detect_platform
+    peaks = PEAKS[detect_platform()]
+    HBM_BYTES_PER_S = peaks["hbm_gbs"] * 1e9
+    F32_OPS_PER_S = peaks["f32_tflops"] * 1e12
+    F64_OPS_PER_S = peaks["f64_tflops"] * 1e12
+    if sys.argv[1:] == ["--batch-overlap"]:
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True,
+            text=True).stdout.strip())
+        return _batch_overlap(torch.device("cuda"))
     import warnings
 
     import numpy as np
@@ -5202,6 +5807,7 @@ def main() -> int:
                                            device_ms)
     from g4s_tpu_torch.ops import (bwell_spmv, route, segment, spgemm_esc,
                                    static_spmv, wsell_spmv)
+    from g4s_tpu_torch.runtime import native_lib
     from g4s_tpu_torch.sparse import CSR, dense_to_csr
 
     dev = torch.device("cuda")
@@ -5644,6 +6250,11 @@ def main() -> int:
 
     laps.append((7, time.perf_counter()))
     # ---- 7: the SpGEMM path: mxm ----------------------------------------
+    # the native host library that mxm's host plan runs in, built by g++
+    # from the checkout
+    native_path, gxx_s = native_lib.build()
+    native_lib.get_lib()
+    _say("7-native-build", lib=native_path.name, gxx_s=f"{gxx_s:.2f}")
     built = []
     esc_plan = spgemm_esc.esc_plan
 
@@ -5683,6 +6294,18 @@ def main() -> int:
                    f"mxm {name}: C's structure differs from scipy's")
             rel = _rel_err(C.data.cpu(), ref.data)
             _check(rel <= REL_TOL, f"mxm {name} vs scipy f64: rel {rel}")
+            # the same host plan in numpy: array for array equal
+            t0 = time.perf_counter()
+            plan_np = esc_plan(A_c, A_c, device=dev, use_native=False)
+            torch.cuda.synchronize()
+            numpy_plan_s = time.perf_counter() - t0
+            _check(all(torch.equal(getattr(plan, f.name),
+                                   getattr(plan_np, f.name))
+                       if isinstance(getattr(plan, f.name), torch.Tensor)
+                       else getattr(plan, f.name) == getattr(plan_np, f.name)
+                       for f in dataclasses.fields(plan)),
+                   f"esc_plan {name}: the native and numpy plans differ")
+            del plan_np
             t0 = time.perf_counter()
             pd = spgemm_esc.esc_plan_device(A_c, A_c, device=dev)
             torch.cuda.synchronize()
@@ -5706,7 +6329,8 @@ def main() -> int:
                  m2_over_flops=f"{plan.m2 / plan.flops:.3f}",
                  rel_err_vs_scipy_f64=f"{rel:.3g}",
                  mxm_s=f"{mxm_s:.2f}", esc_plan_host_s=f"{plan_s:.2f}",
-                 esc_plan_device_s=f"{dev_plan_s:.2f}",
+                 esc_plan_host_numpy_s=f"{numpy_plan_s:.2f}",
+                 plans_equal=True, esc_plan_device_s=f"{dev_plan_s:.2f}",
                  esc_numeric_ms=f"{num_ms:.3f}",
                  esc_numeric_host_wall_us=f"{num_us:.1f}",
                  gflops=f"{2 * plan.flops / num_ms / 1e6:.2f}",
@@ -5939,10 +6563,16 @@ def main() -> int:
     # own; the script waits for that run to end before phase 14, so that
     # phases 14-16 have the card to themselves ----------------------------
     mc_run = _multichip_start()
-    steam_host = None
+    steam_host = batch = None
+    tail_dir = tempfile.TemporaryDirectory()
+    ntc_mech = os.path.join(tail_dir.name, "ndodecane_synthetic.yaml")
+    _synthetic_mechanism_yaml(ntc_mech, seed=CANTERA_SEED, **CANTERA_COUNTS)
     try:
         steam_host = _steam_host_start()
-        ig_reactor, ig_final = _cantera_shock_tube(dev)
+        # ---- 20, first part: the batched NTC sweep, in a process of its
+        # own beside phases 13, 18 and 19 ----
+        batch = _ntc_batch_start(ntc_mech)
+        ig_reactor, ig_final, p13 = _cantera_shock_tube(dev)
         laps.append((18, time.perf_counter()))
         # ---- 18: Cantera's 1-D flames, equilibrium, transport and
         # surfaces, in the time phase 13 leaves before phase 17 ends ----
@@ -5953,49 +6583,65 @@ def main() -> int:
         _phase_models(dev, steam_host)
         laps.append(("17_after_19", time.perf_counter()))
         mc_res = _multichip_wait(mc_run)
+    except BaseException:
+        _pool_stop(batch)
+        raise
     finally:
         _multichip_stop(mc_run)
         if steam_host is not None:
             _steam_host_stop(steam_host)
+    # ---- 20, second part: the host-CPU references, beside phases 14-16 --
+    tail_host = None
+    try:
+        tail_host = _tail_host_start(ntc_mech, {p13["T"]: p13})
+        laps.append((14, time.perf_counter()))
+        # ---- 14: the rest of regional CitcomS at Cookbook2's size --------
+        tail = _citcoms_tail(dev, cookbook2, cg9, ms_of)
+        # phase 14's segment sums are an entry of their own, read at the
+        # finest restriction: multigrid's restrictions make most of its
+        # launches, and this is the larger of their two shapes
+        launches["sorted_segment_sum_citcoms_tail"] = tail["launches"]
+        err["sorted_segment_sum_citcoms_tail"] = tail["segment_sum"]["err"]
+        for d, k in ((ms, "ms"), (plain_ms, "plain_ms"),
+                     (library_ms, "library_ms"), (bound, "bound")):
+            d["sorted_segment_sum_citcoms_tail"] = tail["segment_sum"][k]
 
-    laps.append((14, time.perf_counter()))
-    # ---- 14: the rest of regional CitcomS at Cookbook2's size ------------
-    tail = _citcoms_tail(dev, cookbook2, cg9, ms_of)
-    # phase 14's segment sums are an entry of their own, read at the
-    # finest restriction: multigrid's restrictions make most of its
-    # launches, and this is the larger of their two shapes
-    launches["sorted_segment_sum_citcoms_tail"] = tail["launches"]
-    err["sorted_segment_sum_citcoms_tail"] = tail["segment_sum"]["err"]
-    for d, k in ((ms, "ms"), (plain_ms, "plain_ms"),
-                 (library_ms, "library_ms"), (bound, "bound")):
-        d["sorted_segment_sum_citcoms_tail"] = tail["segment_sum"][k]
+        laps.append((15, time.perf_counter()))
+        # ---- 15: the CitcomS full sphere, its tracers and the coupled
+        # step ----
+        full = _citcoms_full(dev, cookbook2, ms_of)
+        # phase 15's segment sums are an entry of their own, read at the
+        # assembly scatter, the shape of most of its launches
+        launches["sorted_segment_sum_citcoms_full"] = full["launches"]
+        err["sorted_segment_sum_citcoms_full"] = full["segment_sum"]["err"]
+        for d, k in ((ms, "ms"), (plain_ms, "plain_ms"),
+                     (library_ms, "library_ms"), (bound, "bound")):
+            d["sorted_segment_sum_citcoms_full"] = full["segment_sum"][k]
 
-    laps.append((15, time.perf_counter()))
-    # ---- 15: the CitcomS full sphere, its tracers and the coupled step --
-    full = _citcoms_full(dev, cookbook2, ms_of)
-    # phase 15's segment sums are an entry of their own, read at the
-    # assembly scatter, the shape of most of its launches
-    launches["sorted_segment_sum_citcoms_full"] = full["launches"]
-    err["sorted_segment_sum_citcoms_full"] = full["segment_sum"]["err"]
-    for d, k in ((ms, "ms"), (plain_ms, "plain_ms"),
-                 (library_ms, "library_ms"), (bound, "bound")):
-        d["sorted_segment_sum_citcoms_full"] = full["segment_sum"][k]
+        laps.append((16, time.perf_counter()))
+        # ---- 16: the rest of DeePMD at the water model's width ----------
+        _deepmd_tail(dev)
 
-    laps.append((16, time.perf_counter()))
-    # ---- 16: the rest of DeePMD at the water model's width --------------
-    _deepmd_tail(dev)
+        laps.append((17, time.perf_counter()))
+        # ---- 17: the multi-rank dry run's segment-sum kernel ------------
+        mc = _multichip(dev, ms_of, mc_res)
+        # phase 17's segment sums are an entry of their own: the launches of
+        # the multichip driver's four stages, read at the regional block's
+        # scatter
+        launches["sorted_segment_sum_multichip"] = mc["launches"]
+        err["sorted_segment_sum_multichip"] = mc["segment_sum"]["err"]
+        for d, k in ((ms, "ms"), (plain_ms, "plain_ms"),
+                     (library_ms, "library_ms"), (bound, "bound")):
+            d["sorted_segment_sum_multichip"] = mc["segment_sum"][k]
 
-    laps.append((17, time.perf_counter()))
-    # ---- 17: the multi-rank dry run's segment-sum kernel ----------------
-    mc = _multichip(dev, ms_of, mc_res)
-    # phase 17's segment sums are an entry of their own: the launches of
-    # the multichip driver's four stages, read at the regional block's
-    # scatter
-    launches["sorted_segment_sum_multichip"] = mc["launches"]
-    err["sorted_segment_sum_multichip"] = mc["segment_sum"]["err"]
-    for d, k in ((ms, "ms"), (plain_ms, "plain_ms"),
-                 (library_ms, "library_ms"), (bound, "bound")):
-        d["sorted_segment_sum_multichip"] = mc["segment_sum"][k]
+        laps.append((20, time.perf_counter()))
+        # ---- 20: the integrator tail: the batched sweep's results, the
+        # banded BDF, the DAE and sensitivities, and the C API ----------
+        _integrator_tail(dev, batch, tail_host, p13, mc_res)
+    finally:
+        _pool_stop(batch)
+        _pool_stop(tail_host)
+        tail_dir.cleanup()
 
     laps.append((None, time.perf_counter()))
     _say("phase-seconds", **{f"p{k}": f"{t1 - t0:.1f}" for (k, t0), (_, t1)

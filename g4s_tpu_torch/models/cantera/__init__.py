@@ -12,10 +12,10 @@ g4s_tpu_torch.ops.odeint.bdf_solve. The phase models: IAPWS-95 water
 Pitzer (hmw) and Debye-Huckel (electrolyte) electrolytes, condensed,
 lattice and solution phases (condensed), the tpx pure fluids
 (purefluid), the two-temperature plasma (plasma) and VCS multiphase
-equilibrium with solution phases (vcs_multiphase).
-
-Not ported yet: the banded BDF, sensitivities, the DAE solver and the
-batched NTC sweep (ROADMAP.md queue 1, "The Cantera integrator tail").
+equilibrium with solution phases (vcs_multiphase). ops/odeint.py also
+holds the banded Newton path (bdf_solve(bandwidth=)), forward
+sensitivities, the DAE solver, and the lockstep batched BDF behind
+ShockTubeBenchmark.run_ntc_sweep_batched.
 """
 from g4s_tpu_torch.models.cantera.mech import (  # noqa: F401
     Mechanism, load_mechanism, mechanism_from_reference, R_GAS, P_REF,

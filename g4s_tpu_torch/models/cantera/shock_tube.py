@@ -9,10 +9,9 @@ at constant volume that is the peak OH concentration), run once at 1000 K
 for the Redlich-Kwong and ideal phases (:77-148) and swept over the NTC
 temperature range (:198-266), one case after another, or striped over the
 ranks of a torch.distributed group (`run_ntc_sweep_sharded`, the script's
-mpi4py `counter % nprocs == rank`).
-
-Not ported yet (ROADMAP.md, queue 1, "The Cantera integrator tail"): the
-lockstep batched sweep (`run_ntc_sweep_batched`).
+mpi4py `counter % nprocs == rank`), or all cases of a phase at once in
+one lockstep batched BDF (`run_ntc_sweep_batched`, the reference's
+jax.vmap).
 """
 
 from __future__ import annotations
@@ -104,11 +103,41 @@ class ShockTubeBenchmark:
                 ignition_delay(self.r_ig, T0, P0, X_ig, **kw)[0])
         return out
 
-    def run_ntc_sweep_batched(self, *args, **kw):
-        raise NotImplementedError(
-            "run_ntc_sweep_batched (all NTC cases in one lockstep batched "
-            "BDF) is not ported yet; ROADMAP.md, queue 1, \"The Cantera "
-            "integrator tail\"; run_ntc_sweep runs the cases in turn")
+    def run_ntc_sweep_batched(self,
+                              temperatures: Sequence[float] = NTC_TEMPERATURES,
+                              P0: float = 40 * 101325.0, *,
+                              t_end: float = 0.005,
+                              rtol=1e-9, atol=1e-15,
+                              record_size: int = 20000):
+        """All NTC cases of one phase integrated together, as the
+        reference's jax.jit(jax.vmap(bdf_solve)) does: one lockstep batched
+        BDF (ops/odeint._bdf_solve_batched) per phase, every case a lane
+        with its own t, h, order, Jacobian and LU on the reactors' device,
+        recording (T, [OH]) at each accepted step; each lane's tau is its
+        recorded time of peak OH. Cantera's script stripes the cases over
+        MPI ranks instead (NonIdealShockTube.py:229-231). Returns {"T",
+        "tau_RG", "tau_IG"} and, per phase, "result_*" (the batched
+        BDFResult) and "wall_*" (seconds)."""
+        from g4s_tpu_torch.ops.odeint import _bdf_solve_batched
+
+        out = {"T": [float(t) for t in temperatures]}
+        for name, mech, reactor in (("RG", self.mech_rk, self.r_rk),
+                                    ("IG", self.mech_ig, self.r_ig)):
+            t0 = time.time()
+            X = stoich_mixture(mech, self.fuel)
+            k_oh = mech.species_index("oh")
+            y0 = torch.stack([reactor.initial_state(float(T0), P0, X)
+                              for T0 in temperatures])
+            res = _bdf_solve_batched(
+                reactor.rhs, y0, 0.0, t_end, rtol=rtol, atol=atol,
+                record_fn=lambda yy: torch.stack([yy[0], yy[1 + k_oh]]),
+                record_size=record_size, max_steps=200000)
+            peak = torch.argmax(res.record[:, :, 1], dim=1)
+            taus = res.record_t.gather(1, peak[:, None])[:, 0]
+            out[f"tau_{name}"] = [float(x) for x in taus.cpu()]
+            out[f"result_{name}"] = res
+            out[f"wall_{name}"] = time.time() - t0
+        return out
 
     def run_ntc_sweep_sharded(self, group=None,
                               temperatures: Sequence[float] = NTC_TEMPERATURES,

@@ -177,3 +177,33 @@ def device_activities(fn, *, tries: int = 10) -> list:
     raise RuntimeError(f"torch.profiler recorded no device activity of fn "
                        f"in {tries} profiles (the last: {len(events)} "
                        f"device activities, {len(marks)} of them markers)")
+
+
+@contextlib.contextmanager
+def profile_trace(logdir: str):
+    """torch.profiler trace of the block into logdir (obs.profile.trace):
+    the analog of DeePMD's TF timeline profiling (deepmd trainer.py:407-408,
+    859) and the SpGEMM suite's rdtsc probes; view it in chrome://tracing
+    or Perfetto."""
+    from g4s_tpu_torch.obs.profile import trace
+    with trace(logdir):
+        yield
+
+
+class ConvergenceLog:
+    """Per-iteration convergence reporting (CitcomS's
+    print_convergence_progress lines, Stokes_flow_Incomp.c:129-148)."""
+
+    def __init__(self, path=None):
+        self.rows = []
+        self.path = path
+
+    def record(self, step: int, **metrics):
+        self.rows.append((step, dict(metrics)))
+        if self.path:
+            with open(self.path, "a") as f:
+                vals = " ".join(f"{k}={v:.6e}" for k, v in metrics.items())
+                f.write(f"{step} {vals}\n")
+
+    def last(self):
+        return self.rows[-1] if self.rows else None

@@ -8,9 +8,10 @@ value updates) is one gather, multiply and sorted segment sum:
     c.data = segment_sum(A.data[src_a] * B.data[src_b], slot, nnz)
 
 The expand/sort/merge variants find C's structure on the device instead,
-for patterns that are not reused. The reference's native C++ symbolic
-(runtime/native) is not ported yet; `spgemm_plan` runs its numpy path,
-which the reference keeps bit-identical to the native one.
+for patterns that are not reused. `spgemm_plan` runs the symbolic phase in
+the native C++ graph builder (runtime/native/host_kernels.cc, threaded
+over flop-balanced row blocks) or, with use_native=False, in numpy: the two
+plans are equal array for array.
 """
 
 from __future__ import annotations
@@ -51,25 +52,33 @@ def spgemm_flops(a: CSR, b: CSR) -> int:
     return int(2 * deg_b[as_numpy(a.indices)].sum())
 
 
-def spgemm_plan(a: CSR, b: CSR, *, device="cuda") -> SpGEMMPlan:
-    """Symbolic phase (host numpy): exact structure of C and the
-    product->slot map, staged on `device`."""
+def spgemm_plan(a: CSR, b: CSR, *, device="cuda",
+                use_native: bool = True) -> SpGEMMPlan:
+    """Symbolic phase (host): exact structure of C and the product->slot
+    map, staged on `device`. use_native=True runs it in the native graph
+    builder (runtime/native_lib.spgemm_symbolic_native; it raises where the
+    library cannot be built), use_native=False in numpy."""
     device = resolve_device(device)
     if a.shape[1] != b.shape[0]:
         raise ValueError(f"dimension mismatch: {a.shape} @ {b.shape}")
     m, n = a.shape[0], b.shape[1]
-    src_a, src_b, rows, F = spgemm_expand_map(a, b)
-    cols = as_numpy(b.indices).astype(np.int64)[src_b]
-    key = rows * n + cols
-    order = np.argsort(key, kind="stable")
-    src_a, src_b, key = src_a[order], src_b[order], key[order]
-
-    uniq, slot = np.unique(key, return_inverse=True)
-    nnz = int(uniq.size)
-    c_rows = (uniq // n).astype(np.int64)
-    c_indices = (uniq % n).astype(np.int32)
+    if use_native:
+        from g4s_tpu_torch.runtime.native_lib import spgemm_symbolic_native
+        src_a, src_b, slot, c_rows, c_indices, nnz, F = \
+            spgemm_symbolic_native(as_numpy(a.indptr), as_numpy(a.indices),
+                                   as_numpy(b.indptr), as_numpy(b.indices),
+                                   m, n)
+    else:
+        src_a, src_b, rows, F = spgemm_expand_map(a, b)
+        cols = as_numpy(b.indices).astype(np.int64)[src_b]
+        key = rows * n + cols
+        order = np.argsort(key, kind="stable")
+        src_a, src_b, key = src_a[order], src_b[order], key[order]
+        uniq, slot = np.unique(key, return_inverse=True)
+        nnz = int(uniq.size)
+        c_rows, c_indices = uniq // n, uniq % n
     c_indptr = np.zeros(m + 1, dtype=np.int32)
-    np.add.at(c_indptr, c_rows + 1, 1)
+    np.add.at(c_indptr, c_rows.astype(np.int64) + 1, 1)
     np.cumsum(c_indptr, out=c_indptr)
 
     idx_t = np.int32 if max(F, a.nnz, b.nnz, 1) < 2**31 else np.int64

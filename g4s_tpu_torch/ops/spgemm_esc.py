@@ -16,13 +16,15 @@
            reduce with `runsum` (exact tree adds); head sums compact to
            C.data.
 
-`esc_plan` is the symbolic phase (host numpy, O(flop)); `esc_plan_device`
-runs its O(flop) passes on the device; `esc_numeric` is the value phase,
-reusable across value updates. Each class is one broadcast multiply: on a
-GPU that is one launch per class. The reference's native plan core
-(runtime/native), its Benes-routed tier and its family-bucketed symbolic
-are not ported: the numpy plan is the reference's bit-identical fallback,
-and the other two exist for TPU gathers and XLA recompiles.
+`esc_plan` is the symbolic phase on the host, O(flop): its heavy passes
+run in the native plan core (runtime/native/host_kernels.cc's
+g4s_esc_plan_core, a few fused loops and one radix sort), or in numpy with
+use_native=False, which gives the same arrays bit for bit;
+`esc_plan_device` runs those passes on the device; `esc_numeric` is the
+value phase, reusable across value updates. Each class is one broadcast
+multiply: on a GPU that is one launch per class. The reference's
+Benes-routed tier and its family-bucketed symbolic are not ported: they
+exist for TPU gathers and XLA recompiles.
 """
 
 from __future__ import annotations
@@ -215,14 +217,18 @@ def _slab_streams(P: _Partition, a: CSR, b: CSR):
 
 
 def esc_plan(a: CSR, b: CSR, *, order_by: str = "row",
-             device="cuda") -> ESCPlan:
+             device="cuda", use_native: bool = True) -> ESCPlan:
     """Symbolic phase: class partition, spread distances, sort metadata
-    and C's exact structure, in host numpy (O(flop)), staged on `device`.
+    and C's exact structure on the host (O(flop)), staged on `device`.
 
     order_by="row" merges products in row-major slot order and emits CSR
     structure; order_by="col" merges column-major: the one stable sort
     under j*m+i keys is the k-way column merge of the reference's heap
-    engine, and C comes out as CSC with rows sorted within columns."""
+    engine, and C comes out as CSC with rows sorted within columns.
+    use_native=True runs the O(flop) passes in the native plan core
+    (runtime/native_lib.esc_plan_core_native; it raises where the library
+    cannot be built), use_native=False in numpy: the two plans are equal
+    array for array."""
     _check_order(order_by)
     device = resolve_device(device)
     P = _partition(a, b)
@@ -231,6 +237,28 @@ def esc_plan(a: CSR, b: CSR, *, order_by: str = "row",
     p_off, ac_rows = P.p_off, P.ac_rows
     na, nb_len, m2 = P.sizes
     _check_nnz(a, b)
+    t = as_tensor
+    if use_native:
+        from g4s_tpu_torch.runtime.native_lib import esc_plan_core_native
+        F = int((M * L).sum())
+        (a_rank, b_rank, d_a, d_b, d_pad, keys, kmin, off_c, d_head,
+         c_indices, c_indptr, nnz, meta) = esc_plan_core_native(
+            kk, M, L, P.Mh, W, P.a_off[:-1], P.b_off[:-1], p_off[:-1],
+            P.ac_indptr, ac_rows, P.csc_of_csr, P.b_indptr, P.b_indices,
+            a.nnz, b.nnz, n if order_by == "row" else m,
+            m if order_by == "row" else n, F, na, nb_len, m2,
+            order_by == "row", m * n >= (1 << 31))
+        return ESCPlan(
+            a_rank=t(a_rank), b_rank=t(b_rank), d_a=t(d_a), d_b=t(d_b),
+            d_pad=t(d_pad), keys=t(keys),
+            keys_minor=None if kmin is None else t(kmin),
+            off_c=t(off_c), d_head=t(d_head), c_indptr=t(c_indptr),
+            c_indices=t(c_indices), classes=P.classes, na=na,
+            nb_len=nb_len, m2=m2, flops=F, nnz=nnz,
+            t_a=stages_for(int(meta[1])), t_b=stages_for(int(meta[2])),
+            t_pad=stages_for(int(meta[3])), t_sum=stages_for(int(meta[4])),
+            t_head=stages_for(int(meta[5])), shape=(m, n),
+            order_by=order_by).to(device)
     a_src, a_rank, d_a, t_a, _, b_rank, d_b, t_b = _slab_streams(P, a, b)
 
     # ---- product stream: real positions, keys, pad compaction ----------
@@ -289,7 +317,6 @@ def esc_plan(a: CSR, b: CSR, *, order_by: str = "row",
     np.add.at(c_indptr, major + 1, 1)
     np.cumsum(c_indptr, out=c_indptr)
 
-    t = as_tensor
     return ESCPlan(
         a_rank=t(a_rank), b_rank=t(b_rank), d_a=t(d_a), d_b=t(d_b),
         d_pad=t(d_pad), keys=t(keys_dev),

@@ -4,7 +4,8 @@ Counterpart of g4s_tpu/sparse/io_mtx.py, with the same semantics: banner
 validation, pattern entries filled with 1, complex entries keeping the real
 part, 1-based -> 0-based indices, symmetric / skew-symmetric expansion of
 off-diagonals (hermitian rejected), (row, col) sort and COO->CSR
-compression. Numbers are parsed with numpy.
+compression. The body's numbers are parsed by the native parser
+(runtime/native_lib.parse_numbers), or by numpy with use_native=False.
 """
 
 from __future__ import annotations
@@ -26,8 +27,9 @@ def _open(path):
     return open(path, "r")
 
 
-def read_mtx(path) -> COO:
-    """Read a Matrix-Market coordinate file into a CPU COO."""
+def read_mtx(path, *, use_native: bool = True) -> COO:
+    """Read a Matrix-Market coordinate file into a CPU COO; the body is
+    parsed natively unless use_native=False (numpy)."""
     with _open(path) as f:
         banner = f.readline().split()
         if len(banner) != 5 or banner[0] != "%%MatrixMarket" \
@@ -53,9 +55,13 @@ def read_mtx(path) -> COO:
         body = f.read()
 
     ncomp = {"pattern": 2, "real": 3, "integer": 3, "complex": 4}[dtype]
-    flat = np.array(body.split(), dtype=np.float64)
-    n = min(flat.size // ncomp, nnz)
-    flat = flat[: n * ncomp].reshape(n, ncomp)
+    if use_native:
+        from g4s_tpu_torch.runtime.native_lib import parse_numbers
+        flat = parse_numbers(body, ncomp, nnz)
+    else:
+        flat = np.array(body.split(), dtype=np.float64)
+        flat = flat[: min(flat.size // ncomp, nnz) * ncomp].reshape(-1, ncomp)
+    n = flat.shape[0]
     if n < nnz:
         raise ValueError(f"read {n} entries, declared nnz is {nnz}")
     I = flat[:, 0].astype(np.int32) - 1

@@ -314,9 +314,13 @@ def test_bdf_linear_decay_and_recording():
                             record_size=4)
     assert float(short.record_t[-1]) == 1.0
     assert abs(float(short.record[-1, 0]) - np.exp(-1.0)) < 1e-7
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        p_ode.bdf_solve(lambda t, y: -y, _t([1.0]), 0.0, 1.0,
-                        bandwidth=(1, 1))
+    # the banded Newton path (a band of one diagonal here)
+    jr = j_ode.bdf_solve(lambda t, y: -y, jnp.asarray([1.0]), 0.0, 1.0,
+                         rtol=1e-8, atol=1e-10, bandwidth=(0, 0))
+    pr = p_ode.bdf_solve(lambda t, y: -y, _t([1.0]), 0.0, 1.0, rtol=1e-8,
+                         atol=1e-10, bandwidth=(0, 0))
+    assert _elementwise(pr.y, jr.y) <= 1e-9 and pr.success
+    _counts_close(pr, jr)
 
 
 def test_bdf_robertson_matches():
@@ -426,8 +430,12 @@ def test_shock_tube_ignition_delay_matches(files):
     jtau, jres = J.ignition_delay(jb.r_ig, 1000.0, 40 * 101325.0, X, **kw)
     assert abs(tau - jtau) <= 1e-6 * jtau
     _counts_close(res, jres)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pb.run_ntc_sweep_batched()
+    # the lockstep batched sweep's lane at the same case: the same tau (the
+    # steps before the OH peak do not depend on t_end)
+    bo = pb.run_ntc_sweep_batched([1000.0], t_end=0.0046, **kw)
+    for ph in ("RG", "IG"):
+        assert abs(bo[f"tau_{ph}"][0] - po[f"tau_{ph}"]) \
+            <= 1e-6 * po[f"tau_{ph}"], ph
 
 
 def _net_pair(jm, pm, states, **kw):

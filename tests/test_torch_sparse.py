@@ -113,7 +113,9 @@ def test_package_imports_no_jax():
             "g4s_tpu_torch.models.cantera.hmw, "
             "g4s_tpu_torch.models.cantera.purefluid, "
             "g4s_tpu_torch.models.cantera.plasma, "
-            "g4s_tpu_torch.models.cantera.vcs_multiphase; "
+            "g4s_tpu_torch.models.cantera.vcs_multiphase, "
+            "g4s_tpu_torch.ops.banded, g4s_tpu_torch.runtime.native_lib, "
+            "g4s_tpu_torch.runtime.capi_impl, g4s_tpu_torch.obs.profile; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'g4s_tpu.')) or m == 'g4s_tpu'); "
             "print(bad); sys.exit(1 if bad else 0)")
